@@ -1,0 +1,458 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py            # all phases, exit code 0 on success
+    python3 chip_smoke.py --profile  # plus a torch.profiler table of 5 frames
+    python3 chip_smoke.py --kernels-only   # phases 1-3 only, no result line
+
+Phases (any failure exits non-zero; nothing falls back to the CPU):
+  1. environment: torch / CUDA versions, the card's name and power limit;
+  2. build of the three hand-written CUDA kernels from
+     `elasticfusion_tpu_torch/csrc/` (one nvcc per source, in parallel);
+  3. every kernel against its plain PyTorch version on the card, at the shapes
+     the main path gives it, then its time, the plain version's time, the
+     time of the one library call that computes the same (where there is one)
+     and its bound from bytes and operations;
+  4. the main path: `Engine.process_frame` over 6 warm-up + 30 frames of the
+     640x480 synthetic sweep, twice; launch counts, pose error against the
+     known poses, surfel count, coverage, bit-identical repeat, ms/frame,
+     host syncs per frame, peak memory;
+  5. one JSON line `{"kernels": [...]}`;
+  6. last line `{"ok": true, "device": {...}}`.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+if not torch.cuda.is_available():
+    sys.stderr.write("chip_smoke: no CUDA device; this script runs on the card only\n")
+    sys.exit(1)
+
+from elasticfusion_tpu_torch import _build, _device  # noqa: E402
+from elasticfusion_tpu_torch.config import CameraConfig, EngineConfig  # noqa: E402
+from elasticfusion_tpu_torch.engine import Engine  # noqa: E402
+from elasticfusion_tpu_torch.ops import fuse as fuse_ops  # noqa: E402
+from elasticfusion_tpu_torch.ops import splat as splat_ops  # noqa: E402
+from elasticfusion_tpu_torch.ops.fuse_window import (  # noqa: E402
+    fuse_window,
+    fuse_window_plain,
+)
+from elasticfusion_tpu_torch.ops.gram import gram_outer, gram_outer_plain  # noqa: E402
+from elasticfusion_tpu_torch.ops.splat_resolve import (  # noqa: E402
+    splat_resolve,
+    splat_resolve_plain,
+)
+from elasticfusion_tpu_torch.utils.synthetic import (  # noqa: E402
+    make_scene,
+    pose_from_xyzrpy,
+    render_frame,
+)
+
+# published peaks of one H100 SXM (data sheet, dense): HBM bytes/s and float32
+# operations/s outside the tensor cores; the bound of every kernel here
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+
+N_WARM, N_BENCH = 6, 30
+# bounds on the tracked sweep, stated: final pose within 8 mm / 0.25 degrees of
+# the synthetic pose (an H100 run shows 5.95 mm / 0.159 degrees), live surfels
+# inside the band (the same run ends at 312190) and below capacity
+MAX_TRANS_ERR_M = 0.008
+MAX_ROT_ERR_DEG = 0.25
+SURFEL_BAND = (250_000, 400_000)
+MIN_DENSE = 0.9
+
+DEV = torch.device("cuda")
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        print(f"FAILED: {what}", flush=True)
+        sys.exit(1)
+    print(f"  ok: {what}", flush=True)
+
+
+_BLOCKER = None
+
+
+def time_ms(fn, reps: int = 30, warm: int = 3, queue_first: bool = False) -> float:
+    """Mean time of `fn` in ms between two CUDA events around `reps` calls.
+
+    With `queue_first` a long matrix product is put on the stream before the
+    first event, so the host has queued every call by the time the device
+    reaches them: the events then see the device's time alone.  Without it a
+    call that takes the host longer to issue than the device to run is timed
+    at the host's pace (that is what the many-launch plain versions cost)."""
+    global _BLOCKER
+    for _ in range(warm):
+        fn()
+    if queue_first and _BLOCKER is None:
+        _BLOCKER = torch.empty((8192, 8192), device=DEV).normal_()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    if queue_first:
+        torch.matmul(_BLOCKER, _BLOCKER)       # tens of ms of device work
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(bytes_moved: float, ops: float):
+    tb, to = bytes_moved / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    return max(tb, to), ("bytes" if tb >= to else "operations")
+
+
+# ---------------------------------------------------------------------------
+
+
+def phase_environment() -> str:
+    print("== 1. environment", flush=True)
+    print(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
+          f"cuda {torch.version.cuda}", flush=True)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and not torch.backends.cudnn.allow_tf32, "TF32 is off")
+    return smi
+
+
+def phase_build() -> None:
+    print("== 2. build", flush=True)
+    _build.build_all()
+    for line in _build.build_log.splitlines():
+        if "registers" in line or "error" in line or line.startswith("---"):
+            print("  " + line.strip(), flush=True)
+    print(f"build_seconds {_build.build_seconds:.1f}", flush=True)
+
+
+def make_frames(cam: CameraConfig):
+    scene = make_scene(n_side=1400)
+    frames, poses = [], []
+    for i in range(N_WARM + N_BENCH):
+        T = pose_from_xyzrpy(x=0.008 * i, yaw=0.003 * i, z=0.002 * i)
+        frames.append(render_frame(scene[0], scene[1], T, cam))
+        poses.append(T)
+    return frames, poses
+
+
+def engine_config(cam: CameraConfig) -> EngineConfig:
+    return EngineConfig(
+        camera=cam, closeLoops=False, pipeline_depth=0,
+        initial_surfels=1 << 19, max_surfels=1 << 21,
+        confidence_threshold=0.3,
+    )
+
+
+def capture_kernel_inputs(cam, frames):
+    """Run the first frames of the sweep and keep the tensors the main path
+    hands to K2 and K3 on the last of them: real winner channels and a real
+    fused frame, so hits, blends, merges and appends all occur."""
+    captured = {}
+
+    def recording(name, fn):
+        def wrapper(*args):
+            captured[name] = args
+            return fn(*args)
+        return wrapper
+
+    splat_ops.splat_resolve = recording("splat_resolve", splat_resolve)
+    fuse_ops.fuse_window = recording("fuse_window", fuse_window)
+    try:
+        eng = Engine(engine_config(cam))
+        for i in range(5):
+            d, r = frames[i]
+            eng.process_frame(r, d, timestamp=i)
+        torch.cuda.synchronize()
+    finally:
+        splat_ops.splat_resolve = splat_resolve
+        fuse_ops.fuse_window = fuse_window
+    return captured
+
+
+def phase_kernels(cam, frames):
+    print("== 3. kernels against their plain versions", flush=True)
+    H, W = cam.height, cam.width
+    HW = H * W
+    entries = {}
+
+    # --- K1 -----------------------------------------------------------------
+    # tolerance: float32 sums of N products against a float64 product,
+    # |G - G64| <= 1e-5 * max|G64| (tree-shaped sums keep the error near
+    # 1e-7 * sqrt(log N) relative); same bound against the plain version
+    rng = np.random.default_rng(0)
+    k1_err = 0.0
+    for K in (7, 4):
+        for N in (HW, HW // 4, HW // 16):
+            rows = torch.from_numpy(
+                rng.standard_normal((K, N)).astype(np.float32)).to(DEV)
+            rows[:, rng.integers(0, N, N // 3)] = 0.0   # masked pixels are zero rows
+            got = gram_outer(rows)
+            again = gram_outer(rows)
+            plain = gram_outer_plain(rows)
+            ref64 = (rows.double() @ rows.double().T)
+            torch.cuda.synchronize()
+            scale = float(ref64.abs().max())
+            e64 = float((got.double() - ref64).abs().max())
+            ep = float((got - plain).abs().max())
+            k1_err = max(k1_err, ep)
+            check(e64 <= 1e-5 * scale and ep <= 1e-5 * scale,
+                  f"K1 gram_outer K={K} N={N}: |err| vs f64 {e64:.3e}, vs plain "
+                  f"{ep:.3e} (scale {scale:.3e}, tolerance 1e-5 relative)")
+            check(torch.equal(got, again), f"K1 K={K} N={N} bit-identical on repeat")
+    K, N = 7, HW
+    rows = torch.from_numpy(rng.standard_normal((K, N)).astype(np.float32)).to(DEV)
+    b_ms, b_by = bound((K * N + K * K) * 4, 2.0 * K * K * N)
+    entries["gram_outer"] = dict(
+        name="gram_outer", route="cuda",
+        source="elasticfusion_tpu_torch/csrc/gram.cu",
+        replaces="elasticfusion_tpu/ops/gram_pallas.py:24",
+        max_abs_err=k1_err,
+        ms=time_ms(lambda: gram_outer(rows), queue_first=True),
+        plain_ms=time_ms(lambda: gram_outer_plain(rows), reps=10),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(lambda: torch.matmul(rows, rows.T), queue_first=True),
+        bytes=(K * N + K * K) * 4,
+    )
+
+    # --- K2 and K3 on tensors of a real frame -------------------------------
+    cap_in = capture_kernel_inputs(cam, frames)
+    check(set(cap_in) == {"splat_resolve", "fuse_window"},
+          "the main path handed inputs to K2 and K3")
+
+    # K2.  tolerance: built without FMA contraction the kernel repeats the
+    # plain version's roundings, so hit / front decisions agree; at most 0.01 %
+    # of pixels may differ by more than rtol 1e-5 + atol 1e-5 on any channel
+    chan, fx, fy, cx, cy = cap_in["splat_resolve"]
+    check(tuple(chan.shape) == (13, H, W), f"K2 input is [13,{H},{W}]")
+    got = splat_resolve(chan, fx, fy, cx, cy)
+    plain = splat_resolve_plain(chan, fx, fy, cx, cy)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()), "K2 output finite")
+    hit = got[12] > 0
+    n_valid = int((chan[12] > 0).sum())
+    check(int(hit.sum()) > 0.5 * HW and int(hit.sum()) > n_valid,
+          f"K2 hits: {int(hit.sum())} pixels covered from {n_valid} raster "
+          "winners (disks reach beyond their own pixel)")
+    # a blended confidence differs from that of every single winner around it
+    nb_conf = torch.nn.functional.unfold(chan[7][None, None], 5, padding=2)[0]
+    off_any = ((got[6].reshape(1, -1) - nb_conf).abs()
+               > 1e-5 * got[6].reshape(1, -1).clamp(min=1.0)).all(dim=0)
+    blended = off_any.reshape(H, W) & hit
+    check(int(blended.sum()) > 1000, f"K2 blends: {int(blended.sum())} pixels")
+    bad = (~torch.isclose(got, plain, rtol=1e-5, atol=1e-5)).any(dim=0)
+    decisions = int(((got[12] > 0) != (plain[12] > 0)).sum())
+    k2_err = float((got - plain).abs().max())
+    check(int(bad.sum()) <= HW // 10000 and decisions <= HW // 10000,
+          f"K2 vs plain: {int(bad.sum())} pixels beyond tolerance, {decisions} "
+          f"hit decisions differ, max |err| {k2_err:.3e}")
+    check(bool(torch.equal(got[11][~bad], plain[11][~bad])), "K2 time channel exact")
+    b_ms, b_by = bound(26 * HW * 4, 25 * 2 * 40.0 * HW)
+    entries["splat_resolve"] = dict(
+        name="splat_resolve", route="cuda",
+        source="elasticfusion_tpu_torch/csrc/splat_resolve.cu",
+        replaces="elasticfusion_tpu/ops/splat_pallas.py:41",
+        max_abs_err=k2_err,
+        ms=time_ms(lambda: splat_resolve(chan, fx, fy, cx, cy), queue_first=True),
+        plain_ms=time_ms(lambda: splat_resolve_plain(chan, fx, fy, cx, cy), reps=5, warm=1),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        bytes=26 * HW * 4,
+    )
+
+    # K3.  tolerance: association outputs (best_id, best_off, matched) equal
+    # except at most 0.01 % of pixels; contributions rtol 1e-5 + atol 1e-5
+    chan3, params, fx, fy, cx, cy, cap = cap_in["fuse_window"]
+    check(tuple(chan3.shape) == (18, H, W), f"K3 input is [18,{H},{W}]")
+    got = fuse_window(chan3, params, fx, fy, cx, cy, cap)
+    plain = fuse_window_plain(chan3, params, fx, fy, cx, cy, cap)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()), "K3 output finite")
+    matched = got[3] > 0
+    measuring = chan3[12] > 0
+    n_app = int((measuring & ~matched).sum())
+    n_side = int((matched & (got[1] != 4)).sum())
+    check(int(matched.sum()) > 10000 and n_app > 0 and n_side > 0,
+          f"K3 merges {int(matched.sum())}, appends {n_app}, matches at a "
+          f"neighbouring pixel {n_side}")
+    check(int((got[5] > 0).sum()) > 10000, "K3 contributions accumulate")
+    assoc_bad = ((got[0] != plain[0]) | (got[1] != plain[1])
+                 | (got[3] != plain[3]))
+    contrib_bad = (~torch.isclose(got[4:], plain[4:], rtol=1e-5, atol=1e-5)).any(dim=0)
+    k3_err = float((got - plain).abs().max())
+    check(int(assoc_bad.sum()) <= HW // 10000 and int(contrib_bad.sum()) <= HW // 10000,
+          f"K3 vs plain: {int(assoc_bad.sum())} associations differ, "
+          f"{int(contrib_bad.sum())} pixels of contributions beyond tolerance, "
+          f"max |err| {k3_err:.3e}")
+    b_ms, b_by = bound(34 * HW * 4, (9 * 45.0 + 60 + 9 * 13) * HW)
+    entries["fuse_window"] = dict(
+        name="fuse_window", route="cuda",
+        source="elasticfusion_tpu_torch/csrc/fuse_window.cu",
+        replaces="elasticfusion_tpu/ops/fuse_pallas.py:49",
+        max_abs_err=k3_err,
+        ms=time_ms(lambda: fuse_window(chan3, params, fx, fy, cx, cy, cap), queue_first=True),
+        plain_ms=time_ms(
+            lambda: fuse_window_plain(chan3, params, fx, fy, cx, cy, cap), reps=5, warm=1),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        bytes=34 * HW * 4,
+    )
+    for e in entries.values():
+        print(f"  {e['name']}: kernel {e['ms']:.4f} ms, plain {e['plain_ms']:.3f} ms, "
+              f"library {e['library_ms']}, bound {e['bound_ms']:.5f} ms by "
+              f"{e['bound_by']} ({e['bytes']} bytes)", flush=True)
+    return entries
+
+
+WRAPPERS = {"gram_outer": gram_outer, "splat_resolve": splat_resolve,
+            "fuse_window": fuse_window}
+
+
+def run_sweep(cam, frames):
+    """The main path once: returns per-frame poses and counts, ms/frame of
+    the timed frames, host reads per timed frame and the dense coverage."""
+    eng = Engine(engine_config(cam))
+    poses, counts = [], []
+    for i in range(N_WARM):
+        d, r = frames[i]
+        res = eng.process_frame(r, d, timestamp=i)
+        poses.append(res.T_wc)
+        counts.append(res.surfel_count)
+    torch.cuda.synchronize()
+    reads0 = _device.host_reads
+    t0 = time.perf_counter()
+    timed = []
+    for i in range(N_WARM, N_WARM + N_BENCH):
+        d, r = frames[i]
+        timed.append(eng.process_frame(r, d, timestamp=i))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / N_BENCH * 1e3
+    reads = (_device.host_reads - reads0) / N_BENCH
+    for res in timed:
+        poses.append(res.T_wc)
+        counts.append(res.surfel_count)
+    return dict(poses=poses, counts=counts, ms=ms, reads=reads,
+                dense=float(eng._dense_dev), capacity=eng.map.capacity, engine=eng)
+
+
+def phase_main_path(cam, frames, gt_poses):
+    print("== 4. main path: Engine.process_frame, 6 + 30 frames of the "
+          "640x480 sweep", flush=True)
+    global _BLOCKER
+    _BLOCKER = None          # phase 3's scratch must not count as the path's memory
+    torch.cuda.reset_peak_memory_stats()
+    for w in WRAPPERS.values():
+        w.launches = 0
+    run = run_sweep(cam, frames)
+    launches = {k: w.launches for k, w in WRAPPERS.items()}
+    peak = torch.cuda.max_memory_allocated()
+    for k, n in launches.items():
+        check(n > 0, f"{k} launched {n} times on the main path "
+                     f"({n / (N_WARM + N_BENCH - 1):.1f} per tracked frame)")
+
+    poses = np.stack(run["poses"])
+    check(bool(np.isfinite(poses).all()), "all poses finite")
+    T_est, T_gt = poses[-1], gt_poses[-1]
+    terr = float(np.linalg.norm(T_est[:3, 3] - T_gt[:3, 3]))
+    dR = T_est[:3, :3].T @ T_gt[:3, :3]
+    rerr = float(np.degrees(np.arccos(np.clip((np.trace(dR) - 1) / 2, -1, 1))))
+    check(terr < MAX_TRANS_ERR_M and rerr < MAX_ROT_ERR_DEG,
+          f"final pose error {terr * 1e3:.2f} mm / {rerr:.3f} deg "
+          f"(bounds {MAX_TRANS_ERR_M * 1e3:.0f} mm / {MAX_ROT_ERR_DEG} deg)")
+    worst = max(float(np.linalg.norm(p[:3, 3] - g[:3, 3]))
+                for p, g in zip(poses, gt_poses))
+    print(f"  worst translation error over the sweep {worst * 1e3:.2f} mm", flush=True)
+    count = run["counts"][-1]
+    check(SURFEL_BAND[0] <= count <= SURFEL_BAND[1] and count < run["capacity"],
+          f"surfel count {count} inside {SURFEL_BAND}, capacity {run['capacity']}")
+    check(run["dense"] >= MIN_DENSE, f"dense coverage {run['dense']:.3f} >= {MIN_DENSE}")
+
+    again = run_sweep(cam, frames)
+    check(np.array_equal(poses, np.stack(again["poses"]))
+          and run["counts"] == again["counts"],
+          "a second identical run gives bit-identical poses and counts")
+
+    print(f"ms_per_frame {run['ms']:.2f} (second run {again['ms']:.2f})", flush=True)
+    print(f"host_syncs_per_frame {run['reads']:.1f}", flush=True)
+    print(f"peak_memory_bytes {peak}", flush=True)
+    return launches, run
+
+
+def phase_profile(cam, frames, steady_ms: float) -> None:
+    """torch.profiler over five steady frames: device time by kernel."""
+    print("== profile: 5 frames", flush=True)
+    from torch.profiler import ProfilerActivity, profile
+
+    eng = Engine(engine_config(cam))
+    for i in range(8):
+        eng.process_frame(frames[i][1], frames[i][0], timestamp=i)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(8, 13):
+            eng.process_frame(frames[i][1], frames[i][0], timestamp=i)
+        torch.cuda.synchronize()
+    avgs = prof.key_averages()
+    # kernel rows only: the operator rows repeat their kernels' device time
+    from torch.autograd import DeviceType
+
+    kernels = [a for a in avgs if a.device_type == DeviceType.CUDA]
+    dev_ms = sum(a.self_device_time_total for a in kernels) / 1e3 / 5
+    n_launch = sum(a.count for a in kernels) / 5
+    print(f"device_busy_ms_per_frame {dev_ms:.2f}", flush=True)
+    print(f"device_kernels_per_frame {n_launch:.0f}", flush=True)
+    print(f"device_idle_share {1 - dev_ms / steady_ms:.3f} (against the "
+          f"{steady_ms:.2f} ms/frame measured without the profiler)", flush=True)
+    print(avgs.table(sort_by="self_device_time_total", row_limit=25,
+                     max_name_column_width=60), flush=True)
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--profile", action="store_true",
+                    help="also print a torch.profiler table of five frames")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="stop after phase 3 (prints no result line)")
+    args = ap.parse_args()
+
+    t_start = time.perf_counter()
+    smi = phase_environment()
+    phase_build()
+    cam = CameraConfig()
+    frames, gt_poses = make_frames(cam)
+    entries = phase_kernels(cam, frames)
+    if args.kernels_only:
+        print("stopped after phase 3 as asked", flush=True)
+        return
+    launches, run = phase_main_path(cam, frames, gt_poses)
+    if args.profile:
+        phase_profile(cam, frames, run["ms"])
+
+    print("== 5. kernels", flush=True)
+    kernels = []
+    for name, e in entries.items():
+        e = dict(e)
+        e["launches"] = launches[name]
+        e["kernel_ms"] = e["ms"]
+        kernels.append(e)
+    print(f"total_seconds {time.perf_counter() - t_start:.1f}", flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,455 @@
+"""Dense RGB-D odometry residual/normal-equation ops — equivalents of the
+original system's CUDA reduction kernels (Core/Cuda/reduce.cu):
+  - icpStep           (reduce.cu:204-401)  point-to-plane projective ICP rows
+  - computeRgbResidual(reduce.cu:603-787)  photometric correspondence search
+  - rgbStep           (reduce.cu:403-550)  photometric Jacobian rows
+  - so3Step           (reduce.cu:789-973)  rotation-only LK pre-alignment
+
+Each step computes per-pixel rows [J | r] over the whole image, then forms
+the Gram matrix G = rows·rowsᵀ with the K1 kernel (ops/gram.py).  G holds the
+6×6 normal matrix A = G[:6,:6], the rhs b = G[:6,6] and Σr² = G[6,6] — the 29
+floats of the original two-stage tree reduction.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..surfels import pixel_grid
+from .gram import gram_outer
+from .preprocess import SOBEL_SCALE
+
+
+class Gram(NamedTuple):
+    """Normal-equation payload of one reduction: A(6,6), b(6,), Σr², count."""
+
+    A: torch.Tensor
+    b: torch.Tensor
+    sum_sq: torch.Tensor
+    count: torch.Tensor
+
+
+def _gram_from_rows(rows: torch.Tensor, valid: torch.Tensor) -> Gram:
+    """rows [7,N] (zeroed where invalid), valid [N] bool → Gram."""
+    G = gram_outer(rows.contiguous())
+    return Gram(A=G[:6, :6], b=G[:6, 6], sum_sq=G[6, 6],
+                count=valid.to(torch.float32).sum())
+
+
+def _flat_xy(H: int, W: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    u, v = pixel_grid(H, W, device)
+    return u.reshape(-1), v.reshape(-1)
+
+
+def _round_i(x: torch.Tensor) -> torch.Tensor:
+    """round half to even, then truncate toward zero to an integer."""
+    return torch.round(x).to(torch.int64)
+
+
+# ---------------------------------------------------------------------------
+# ICP (point-to-plane, projective data association) — reduce.cu:204-329
+# ---------------------------------------------------------------------------
+
+
+def icp_prev_table(vmap_g_prev: torch.Tensor, nmap_g_prev: torch.Tensor) -> torch.Tensor:
+    """The (loop-invariant) model vertex+normal maps as one [6,N] gather table."""
+    return torch.cat([vmap_g_prev.reshape(3, -1), nmap_g_prev.reshape(3, -1)])
+
+
+def rgb_last_table(last_depth: torch.Tensor, last_image: torch.Tensor,
+                   cloud: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The (loop-invariant) last depth+intensity (+ back-projected last cloud
+    when given) as one [2|5, N] gather table: one gather serves both the
+    correspondence search and rgb_step's point fetch."""
+    rows = [last_depth.reshape(1, -1), last_image.reshape(1, -1)]
+    if cloud is not None:
+        rows.append(cloud.reshape(3, -1))
+    return torch.cat(rows)
+
+
+def rgb_static_gates(
+    min_grad2_scaled: float,
+    dIdx: torch.Tensor, dIdy: torch.Tensor,
+    next_depth: torch.Tensor, next_image: torch.Tensor,
+) -> torch.Tensor:
+    """Pose-independent validity gates of compute_rgb_residual
+    (reduce.cu:648-659): 4x4 non-zero neighbourhood, bounds, gradient
+    magnitude, depth validity.  Loop-invariant — compute once per level."""
+    H, W = next_image.shape
+    dev = next_image.device
+    yi = torch.arange(H, device=dev)[:, None]
+    xi = torch.arange(W, device=dev)[None, :]
+
+    nb_ok = torch.ones((H, W), dtype=torch.bool, device=dev)
+    nz = next_image > 0
+    for du in range(-2, 2):
+        for dv in range(-2, 2):
+            shifted = torch.roll(nz, shifts=(-du, -dv), dims=(0, 1))
+            inb = ((yi + du >= 0) & (yi + du < H)
+                   & (xi + dv >= 0) & (xi + dv < W))
+            nb_ok = nb_ok & (shifted | ~inb)
+
+    bounds = (xi < W - 5) & (yi < H - 1)
+    grad_ok = (dIdx * dIdx + dIdy * dIdy) >= min_grad2_scaled
+    return (nb_ok & bounds & grad_ok & (next_depth > 0)).reshape(H * W)
+
+
+def icp_step(
+    T_curr: torch.Tensor,       # (4,4) current world←camera estimate
+    vmap_curr: torch.Tensor,    # (3,H,W) current frame camera-space vertices
+    nmap_curr: torch.Tensor,    # (3,H,W) current frame normals
+    T_prev: torch.Tensor,       # (4,4) previous world←camera pose
+    vmap_g_prev: torch.Tensor,  # (3,H,W) model prediction, WORLD frame
+    nmap_g_prev: torch.Tensor,  # (3,H,W) model normals, WORLD frame
+    fx: float, fy: float, cx: float, cy: float,
+    dist_thresh: float = 0.10,
+    angle_thresh_sin: float = 0.342020143,
+    prev_table: Optional[torch.Tensor] = None,
+) -> Gram:
+    """Point-to-plane ICP rows against the predicted model maps.
+
+    Per-pixel logic mirrors ICPReduction::search/getProducts
+    (reduce.cu:228-309): transform current vertex to world with T_curr,
+    re-project into the previous camera, gather the model vertex/normal,
+    gate on distance ≤0.10 m and normal-cross-product norm < sin 20°, and
+    emit the row [n | s×n | n·(s−d)] in the *previous camera* frame."""
+    C, H, W = vmap_curr.shape
+    N = H * W
+    Rc = T_curr[:3, :3]
+    tc = T_curr[:3, 3]
+    Rp_inv = T_prev[:3, :3].T
+    tp = T_prev[:3, 3]
+
+    v = vmap_curr.reshape(3, N)          # camera frame
+    n = nmap_curr.reshape(3, N)
+    valid_in = (v[2] > 0) & (torch.sum(n * n, dim=0) > 1e-12)
+
+    v_g = Rc @ v + tc[:, None]           # world
+    v_cp = Rp_inv @ (v_g - tp[:, None])  # previous camera frame
+
+    z = v_cp[2]
+    safe_z = torch.where(torch.abs(z) > 1e-12, z, torch.ones_like(z))
+    u_proj = _round_i(v_cp[0] * fx / safe_z + cx)
+    v_proj = _round_i(v_cp[1] * fy / safe_z + cy)
+    in_img = (u_proj >= 0) & (v_proj >= 0) & (u_proj < W) & (v_proj < H) & (z >= 0)
+
+    flat = torch.clamp(v_proj, 0, H - 1) * W + torch.clamp(u_proj, 0, W - 1)
+    if prev_table is None:
+        prev_table = icp_prev_table(vmap_g_prev, nmap_g_prev)
+    got = prev_table[:, flat]
+    vprev_g, nprev_g = got[0:3], got[3:6]
+    prev_valid = (torch.sum(vprev_g * vprev_g, dim=0) > 0) & (
+        torch.sum(nprev_g * nprev_g, dim=0) > 1e-12
+    )
+
+    n_g = Rc @ n                          # current normal in world
+    dist = torch.linalg.vector_norm(vprev_g - v_g, dim=0)
+    sine = torch.linalg.vector_norm(torch.linalg.cross(n_g, nprev_g, dim=0), dim=0)
+
+    found = (
+        valid_in & in_img & prev_valid
+        & (sine < angle_thresh_sin) & (dist <= dist_thresh)
+    )
+
+    # rows in previous-camera frame (reduce.cu:283-293)
+    s_cp = v_cp
+    d_cp = Rp_inv @ (vprev_g - tp[:, None])
+    n_cp = Rp_inv @ nprev_g
+
+    sxn = torch.linalg.cross(s_cp, n_cp, dim=0)
+    res = torch.sum(n_cp * (s_cp - d_cp), dim=0)
+    rows = torch.cat([n_cp, sxn, res[None]])               # [7,N]
+    rows = torch.where(found[None, :], rows, torch.zeros_like(rows))
+    return _gram_from_rows(rows, found)
+
+
+# ---------------------------------------------------------------------------
+# RGB photometric residual + step — reduce.cu:403-550, 603-787
+# ---------------------------------------------------------------------------
+
+
+class RgbCorrespondence(NamedTuple):
+    """Vectorized DataTerm image (types.cuh:79-84)."""
+
+    u0: torch.Tensor        # [N] matched pixel x in last image
+    v0: torch.Tensor        # [N] matched pixel y in last image
+    diff: torch.Tensor      # [N] intensity difference next−last
+    valid: torch.Tensor     # [N] bool
+    count: torch.Tensor     # scalar
+    sigma_sum: torch.Tensor  # scalar Σdiff²
+    p: Optional[torch.Tensor] = None  # [3,N] last-cloud point at (v0,u0)
+
+
+def compute_rgb_residual(
+    min_grad2_scaled: float,
+    dIdx: torch.Tensor, dIdy: torch.Tensor,        # (H,W) next-image gradients
+    last_depth: torch.Tensor, next_depth: torch.Tensor,  # (H,W) m, 0 invalid
+    last_image: torch.Tensor, next_image: torch.Tensor,  # (H,W) intensity
+    kt: torch.Tensor,         # (3,) K·t of inverse incremental transform
+    krkinv: torch.Tensor,     # (3,3) K·R·K⁻¹
+    max_depth_delta: float = 0.07,
+    last_table: Optional[torch.Tensor] = None,
+    static_gates: Optional[torch.Tensor] = None,
+) -> RgbCorrespondence:
+    """Dense photometric correspondence via depth-consistent reprojection,
+    mirroring RGBResidual::getProducts (reduce.cu:636-716)."""
+    H, W = next_image.shape
+    N = H * W
+    x, y = _flat_xy(H, W, next_image.device)
+
+    if static_gates is None:
+        static_gates = rgb_static_gates(
+            min_grad2_scaled, dIdx, dIdy, next_depth, next_image
+        )
+
+    d1 = next_depth.reshape(N)
+    td1 = d1 * (krkinv[2, 0] * x + krkinv[2, 1] * y + krkinv[2, 2]) + kt[2]
+    safe_td1 = torch.where(torch.abs(td1) > 1e-12, td1, torch.ones_like(td1))
+    u0 = _round_i(
+        (d1 * (krkinv[0, 0] * x + krkinv[0, 1] * y + krkinv[0, 2]) + kt[0]) / safe_td1
+    )
+    v0 = _round_i(
+        (d1 * (krkinv[1, 0] * x + krkinv[1, 1] * y + krkinv[1, 2]) + kt[1]) / safe_td1
+    )
+    in_img = (u0 >= 0) & (v0 >= 0) & (u0 < W) & (v0 < H)
+
+    flat0 = torch.clamp(v0, 0, H - 1) * W + torch.clamp(u0, 0, W - 1)
+    if last_table is None:
+        last_table = rgb_last_table(last_depth, last_image)
+    got = last_table[:, flat0]
+    d0, last_i = got[0], got[1]
+    p = got[2:5] if got.shape[0] >= 5 else None
+    match_ok = (d0 > 0) & (torch.abs(td1 - d0) <= max_depth_delta) & (last_i != 0)
+
+    valid = static_gates & in_img & match_ok
+    diff = torch.where(valid, next_image.reshape(N) - last_i, torch.zeros_like(d1))
+    return RgbCorrespondence(
+        u0=u0, v0=v0, diff=diff, valid=valid,
+        count=valid.to(torch.float32).sum(),
+        sigma_sum=torch.sum(diff * diff),
+        p=p,
+    )
+
+
+def rgb_step(
+    corres: RgbCorrespondence,
+    sigma: torch.Tensor,        # scalar (or -1.0 for rgbOnly even weighting)
+    cloud: torch.Tensor,        # (3,H,W) back-projected lastDepth (level intr.)
+    fx: float, fy: float,
+    dIdx: torch.Tensor, dIdy: torch.Tensor,
+) -> Gram:
+    """Photometric Jacobian rows, mirroring RGBReduction::getProducts
+    (reduce.cu:420-478): gradients read at the *next*-image pixel, the 3D
+    point read from the back-projected *last* depth at the matched pixel,
+    Huber-like weight w = 1/(σ+|diff|)."""
+    C, H, W = cloud.shape
+    N = H * W
+
+    w = sigma + torch.abs(corres.diff)
+    w = torch.where(w > 1.19209290e-07, 1.0 / w, torch.ones_like(w))
+    w = torch.where(sigma == -1.0, torch.ones_like(w), w)
+
+    if corres.p is not None:
+        p = corres.p
+    else:
+        flat0 = torch.clamp(corres.v0, 0, H - 1) * W + torch.clamp(corres.u0, 0, W - 1)
+        p = cloud.reshape(3, N)[:, flat0]
+    safe_z = torch.where(torch.abs(p[2]) > 1e-12, p[2], torch.ones_like(p[2]))
+    invz = 1.0 / safe_z
+
+    gx = dIdx.reshape(N) * (w * SOBEL_SCALE)
+    gy = dIdy.reshape(N) * (w * SOBEL_SCALE)
+    v0r = gx * fx * invz
+    v1r = gy * fy * invz
+    v2r = -(v0r * p[0] + v1r * p[1]) * invz
+
+    rows = torch.stack(
+        [
+            v0r,
+            v1r,
+            v2r,
+            -p[2] * v1r + p[1] * v2r,
+            p[2] * v0r - p[0] * v2r,
+            -p[1] * v0r + p[0] * v1r,
+            -w * corres.diff,
+        ]
+    )  # [7,N]
+    rows = torch.where(corres.valid[None, :], rows, torch.zeros_like(rows))
+    return _gram_from_rows(rows, corres.valid)
+
+
+# ---------------------------------------------------------------------------
+# SO(3) pre-alignment — reduce.cu:789-973
+# ---------------------------------------------------------------------------
+
+
+class GramSO3(NamedTuple):
+    A: torch.Tensor       # (3,3)
+    b: torch.Tensor       # (3,)
+    sum_sq: torch.Tensor
+    count: torch.Tensor
+
+
+def so3_neighborhood_table(img: torch.Tensor) -> torch.Tensor:
+    """(img, x-1, x+1, y-1, y+1) shifted channels as one [5,N] gather table —
+    interior-only indices make pixel-domain rolls exact."""
+    return torch.stack(
+        [
+            img,
+            torch.roll(img, 1, dims=1), torch.roll(img, -1, dims=1),
+            torch.roll(img, 1, dims=0), torch.roll(img, -1, dims=0),
+        ]
+    ).reshape(5, -1)
+
+
+def so3_step(
+    last_image: torch.Tensor,   # (H,W) float intensity
+    next_image: torch.Tensor,
+    image_basis: torch.Tensor,  # (3,3) K R K⁻¹
+    kinv: torch.Tensor,         # (3,3)
+    krlr: torch.Tensor,         # (3,3) K R
+    tables: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> GramSO3:
+    """Whole-image rotation-only Lucas-Kanade step, mirroring
+    SO3Reduction::getProducts (reduce.cu:820-896).  Gradients are central
+    differences in the original's (back−fore)/2 form — the NEGATIVE of d/dx."""
+    H, W = next_image.shape
+    x, y = _flat_xy(H, W, next_image.device)
+
+    ref = torch.stack([x, y, torch.ones_like(x)])             # (3,N)
+    warped = image_basis @ ref
+    safe_wz = torch.where(torch.abs(warped[2]) > 1e-12, warped[2],
+                          torch.ones_like(x))
+    wx = _round_i(warped[0] / safe_wz)
+    wy = _round_i(warped[1] / safe_wz)
+
+    xi = x.to(torch.int64)
+    yi = y.to(torch.int64)
+    found = (
+        (wx >= 1) & (wx < W - 1) & (wy >= 1) & (wy < H - 1)
+        & (xi >= 1) & (xi < W - 1) & (yi >= 1) & (yi < H - 1)
+    )
+
+    flat_w = torch.clamp(wy, 1, H - 2) * W + torch.clamp(wx, 1, W - 2)
+    if tables is None:
+        tables = (so3_neighborhood_table(next_image),
+                  so3_neighborhood_table(last_image))
+    next_table, last_table = tables
+    n_at, n_xm, n_xp, n_ym, n_yp = next_table[:, flat_w]
+    flat_l = torch.clamp(yi, 1, H - 2) * W + torch.clamp(xi, 1, W - 2)
+    l_at, l_xm, l_xp, l_ym, l_yp = last_table[:, flat_l]
+
+    gnx = (n_xm - n_xp) * 0.5
+    gny = (n_ym - n_yp) * 0.5
+    glx = (l_xm - l_xp) * 0.5
+    gly = (l_ym - l_yp) * 0.5
+
+    gx = (gnx + glx) * 0.5
+    gy = (gny + gly) * 0.5
+
+    point = kinv @ ref                                         # (3,N)
+    z2 = point[2] * point[2]
+    a, b_, c = krlr[0, 0], krlr[0, 1], krlr[0, 2]
+    d, e, f = krlr[1, 0], krlr[1, 1], krlr[1, 2]
+    g, h, i_ = krlr[2, 0], krlr[2, 1], krlr[2, 2]
+
+    lp = torch.stack(
+        [
+            (point[2] * (d * gy + a * gx) - gy * g * y - gx * g * x) / z2,
+            (point[2] * (e * gy + b_ * gx) - gy * h * y - gx * h * x) / z2,
+            (point[2] * (f * gy + c * gx) - gy * i_ * y - gx * i_ * x) / z2,
+        ]
+    )
+    jac = torch.linalg.cross(lp, point, dim=0)                 # (3,N)
+    resid = -(n_at - l_at)
+
+    rows = torch.cat([jac, resid[None]])                       # (4,N)
+    rows = torch.where(found[None, :], rows, torch.zeros_like(rows))
+    G = gram_outer(rows.contiguous())
+    return GramSO3(A=G[:3, :3], b=G[:3, 3], sum_sq=G[3, 3],
+                   count=found.to(torch.float32).sum())
+
+
+def project_to_point_cloud(
+    depth: torch.Tensor, fx: float, fy: float, cx: float, cy: float
+) -> torch.Tensor:
+    """Back-project a depth image without validity gating
+    (projectPointsKernel, cudafuncs.cu:670-709): z=0 → zero point."""
+    H, W = depth.shape
+    u, v = pixel_grid(H, W, depth.device)
+    return torch.stack([(u - cx) * depth / fx, (v - cy) * depth / fy, depth])
+
+
+# ---------------------------------------------------------------------------
+# Small solves, on the host in float32.  The tracking loop reads each
+# iteration's normal equations back once and solves them here; the arithmetic
+# of the reference (unrolled Cholesky, Cramer) is kept operation for operation
+# so that the Gauss-Newton exit tests see the same numbers.
+# ---------------------------------------------------------------------------
+
+_F32 = np.float32
+
+
+def _damped(A: np.ndarray, n: int) -> np.ndarray:
+    return (np.asarray(A, _F32) + np.eye(n, dtype=_F32) * _F32(1e-12)).astype(_F32)
+
+
+def solve_6x6(A: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """6×6 solve of the SPD Gauss-Newton normal equations (the original does
+    an Eigen ldlt on the host, RGBDOdometry.cpp:522-537) as an unrolled
+    Cholesky; the tiny damping guards rank deficiency when a frame has no
+    valid pixels."""
+    return _chol_solve_unrolled(_damped(A, 6), np.asarray(b, _F32), 6)
+
+
+def _chol_solve_unrolled(A: np.ndarray, b: np.ndarray, n: int) -> np.ndarray:
+    """Unrolled dense Cholesky solve for a tiny SPD system (n <= 8)."""
+    L = [[None] * n for _ in range(n)]
+    inv_d = [None] * n
+    for j in range(n):
+        s = A[j, j]
+        for k in range(j):
+            s = s - L[j][k] * L[j][k]
+        inv_d[j] = _F32(1.0) / np.sqrt(np.maximum(s, _F32(1e-30)))
+        for i in range(j + 1, n):
+            s2 = A[i, j]
+            for k in range(j):
+                s2 = s2 - L[i][k] * L[j][k]
+            L[i][j] = s2 * inv_d[j]
+    y = [None] * n
+    for i in range(n):
+        s = b[i]
+        for k in range(i):
+            s = s - L[i][k] * y[k]
+        y[i] = s * inv_d[i]
+    x = [None] * n
+    for i in reversed(range(n)):
+        s = y[i]
+        for k in range(i + 1, n):
+            s = s - L[k][i] * x[k]
+        x[i] = s * inv_d[i]
+    return np.array(x, dtype=_F32)
+
+
+def solve_3x3(A: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Damped 3×3 solve by Cramer's rule (SO3 pre-alignment loop)."""
+    A = _damped(A, 3)
+    b = np.asarray(b, _F32)
+    c00 = A[1, 1] * A[2, 2] - A[1, 2] * A[2, 1]
+    c01 = A[1, 2] * A[2, 0] - A[1, 0] * A[2, 2]
+    c02 = A[1, 0] * A[2, 1] - A[1, 1] * A[2, 0]
+    det = A[0, 0] * c00 + A[0, 1] * c01 + A[0, 2] * c02
+    inv_det = _F32(1.0) / (det if abs(det) > 1e-30 else _F32(1e-30))
+    c10 = A[0, 2] * A[2, 1] - A[0, 1] * A[2, 2]
+    c11 = A[0, 0] * A[2, 2] - A[0, 2] * A[2, 0]
+    c12 = A[0, 1] * A[2, 0] - A[0, 0] * A[2, 1]
+    c20 = A[0, 1] * A[1, 2] - A[0, 2] * A[1, 1]
+    c21 = A[0, 2] * A[1, 0] - A[0, 0] * A[1, 2]
+    c22 = A[0, 0] * A[1, 1] - A[0, 1] * A[1, 0]
+    x0 = (c00 * b[0] + c10 * b[1] + c20 * b[2]) * inv_det
+    x1 = (c01 * b[0] + c11 * b[1] + c21 * b[2]) * inv_det
+    x2 = (c02 * b[0] + c12 * b[1] + c22 * b[2]) * inv_det
+    return np.array([x0, x1, x2], dtype=_F32)

@@ -1,0 +1,56 @@
+"""K1 parity on the CPU: the port's plain Gram accumulation against the
+reference Pallas kernel in interpret mode and against a float64 product.
+
+The CUDA kernel itself cannot run here; `chip_smoke.py` holds it against the
+plain version on the card."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import nn, tt
+from elasticfusion_tpu.ops.gram_pallas import gram_outer_pallas
+from elasticfusion_tpu_torch.ops.gram import gram_outer, gram_outer_plain
+
+
+def _rows(K, N, seed):
+    rng = np.random.default_rng(seed)
+    rows = rng.standard_normal((K, N)).astype(np.float32)
+    rows[:, rng.integers(0, N, N // 4)] = 0.0     # masked pixels are zero rows
+    return rows
+
+
+# N is no multiple of any block (4096, 128, 256); sums of <= 19211 float32
+# products against float64: rtol 1e-5 of the largest entry
+# (each Pallas shape is one more compile, so two of the four cases skip it)
+@pytest.mark.parametrize("K,N,with_pallas", [
+    (7, 19211, True), (4, 4801, True), (7, 1237, False), (4, 19211, False)])
+def test_gram_plain_vs_pallas_and_f64(K, N, with_pallas):
+    rows = _rows(K, N, seed=K * 1000 + N)
+    ref64 = rows.astype(np.float64) @ rows.astype(np.float64).T
+    scale = np.abs(ref64).max()
+    plain = nn(gram_outer_plain(tt(rows)))
+    wrapped = nn(gram_outer(tt(rows)))          # CPU tensor → plain version
+    np.testing.assert_allclose(plain, ref64, rtol=0, atol=1e-5 * scale)
+    if with_pallas:
+        pallas = nn(gram_outer_pallas(jnp.asarray(rows), interpret=True))
+        np.testing.assert_allclose(pallas, ref64, rtol=0, atol=1e-5 * scale)
+        np.testing.assert_allclose(plain, pallas, rtol=0, atol=1e-5 * scale)
+    np.testing.assert_array_equal(wrapped, plain)
+    np.testing.assert_allclose(plain, plain.T, rtol=0, atol=1e-6 * scale)
+
+
+def test_gram_wrapper_checks_its_input():
+    with pytest.raises(ValueError):
+        gram_outer(torch.zeros((17, 64)))                  # K > 16
+    with pytest.raises(ValueError):
+        gram_outer(torch.zeros((7, 64), dtype=torch.float64))
+    with pytest.raises(ValueError):
+        gram_outer(torch.zeros((7,)))
+
+
+def test_gram_launch_counter_counts_kernel_launches_only():
+    before = gram_outer.launches
+    gram_outer(tt(_rows(7, 300, 1)))
+    assert gram_outer.launches == before       # the CPU path launches nothing

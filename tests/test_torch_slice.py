@@ -1,0 +1,214 @@
+"""The slice as a whole on the CPU: closure-free SLAM frames at 160x120
+through the reference `slam_step` and the port's, both started from the same
+converted state; the port's `Engine.process_frame` against its own
+`slam_step` chain; and the rules around the slice (flags that raise, no CPU
+fall-back, nothing of JAX imported by the port).
+
+Held against the reference's `slam_step` with `fx16_clean=False`: the port
+has the exact float32 `clean` only, and its `slam_step` raises when the flag
+is set (its `Engine` ignores the flag exactly as the reference's
+`_frame_main` does)."""
+
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import SMALL_CAM, both_cams, nn, rot_err, tt
+from elasticfusion_tpu import engine as ref_engine
+from elasticfusion_tpu.config import EngineConfig as RefConfig
+from elasticfusion_tpu.utils.synthetic import make_scene, render_frame, synthetic_trajectory
+from elasticfusion_tpu_torch import convert
+from elasticfusion_tpu_torch import engine as port_engine
+from elasticfusion_tpu_torch.config import EngineConfig as PortConfig
+
+N_FRAMES = 4            # the first initialises the map, three are tracked
+CAP = 1 << 16
+CFG = dict(closeLoops=False, confidence_threshold=0.3, fx16_clean=False,
+           initial_surfels=CAP, max_surfels=CAP)
+WEIGHT = 0.5            # the velocity weight of a camera moving >= 1 cm a frame
+
+
+@pytest.fixture(scope="module")
+def frames():
+    ref_cam, port_cam = both_cams(SMALL_CAM)
+    scene = make_scene(n_side=500)
+    poses = synthetic_trajectory("sweep", 120)[:N_FRAMES]     # ~1 cm a frame
+    rendered = [render_frame(scene[0], scene[1], T, ref_cam) for T in poses]
+    return ref_cam, port_cam, poses, rendered
+
+
+@pytest.fixture(scope="module")
+def ref_chain(frames):
+    """The reference: first-frame state, then `slam_step` per frame."""
+    ref_cam, _, poses, rendered = frames
+    cfg = RefConfig(camera=ref_cam, **CFG)
+
+    @jax.jit
+    def first(depth_mm, rgb, T):
+        raw_m, filt_m = ref_engine._preprocess(depth_mm, cfg)
+        m = ref_engine._init_map(raw_m, filt_m, rgb, cfg, CAP)
+        one = jnp.float32(1.0)
+        pred, fill, dense, _ = ref_engine._predict_only(
+            m, T, one, one, filt_m, rgb, jnp.bool_(False), cfg)
+        return m, ref_engine._coarse_intensity(rgb, cfg), pred, fill
+
+    d0, rgb0 = rendered[0]
+    T = jnp.asarray(poses[0], jnp.float32)
+    m, so3, pred, fill = first(jnp.asarray(d0), jnp.asarray(rgb0), T)
+    to_np = lambda t: {f: np.asarray(getattr(t, f)) for f in t._fields}  # noqa: E731
+    state0 = dict(map=to_np(m), T=np.asarray(T), so3_hist=np.asarray(so3),
+                  pred=to_np(pred), fill=tuple(np.asarray(a) for a in fill))
+    steps = []
+    for i in range(1, N_FRAMES):
+        d, rgb = rendered[i]
+        m, T, so3, fill, pred, dense, res = ref_engine.slam_step(
+            m, T, so3, fill[0], fill[1], fill[2], jnp.asarray(d), jnp.asarray(rgb),
+            jnp.float32(i + 1), jnp.float32(WEIGHT), cfg)
+        steps.append(dict(T=np.asarray(T), count=int(m.count), dense=float(dense),
+                          icp_count=float(res.icp_count)))
+    return state0, steps
+
+
+def _port_chain(port_cfg, rendered, m, state, select_by_dense=False, dense=None):
+    """The port's `slam_step` per frame from a given state."""
+    T, so3, pred, fill = state.T, state.so3_hist, state.pred, state.fill
+    steps = []
+    for i in range(1, N_FRAMES):
+        d, rgb = rendered[i]
+        if select_by_dense and float(dense) >= 0.75:      # as `_frame_main` selects
+            target = (pred.vertex, pred.normal, pred.image)
+        else:
+            target = fill
+        m, T, so3, fill, pred, dense, res = port_engine.slam_step(
+            m, T, so3, target[0], target[1], target[2],
+            tt(d.astype(np.float32)), tt(rgb), float(i + 1), WEIGHT, port_cfg)
+        steps.append(dict(T=nn(T), count=int(m.count), dense=float(dense),
+                          icp_count=float(res.icp_count), map=m))
+    return steps
+
+
+def test_slice_matches_reference_slam_step(frames, ref_chain):
+    _, port_cam, poses, rendered = frames
+    state0, ref_steps = ref_chain
+    port_cfg = PortConfig(camera=port_cam, **CFG)
+    m = convert.surfel_map_from_numpy(state0["map"], "cpu")
+    state = convert.engine_state_from_numpy(state0, "cpu")
+    port_steps = _port_chain(port_cfg, rendered, m, state)
+    for i, (p, r) in enumerate(zip(port_steps, ref_steps)):
+        # per frame: 1e-3 m, 1e-3 rad, 1 % of the surfels
+        assert np.linalg.norm(p["T"][:3, 3] - r["T"][:3, 3]) < 1e-3, f"frame {i + 1}"
+        assert rot_err(p["T"], r["T"]) < 1e-3, f"frame {i + 1}"
+        assert abs(p["count"] - r["count"]) <= 0.01 * r["count"], f"frame {i + 1}"
+        assert abs(p["dense"] - r["dense"]) < 0.01
+        assert r["count"] > 10000 and r["icp_count"] > 5000
+        # and both follow the rendered trajectory (1 cm a frame) to 5 mm
+        gt = np.asarray(poses[i + 1])
+        assert np.linalg.norm(p["T"][:3, 3] - gt[:3, 3]) < 5e-3
+        assert np.linalg.norm(r["T"][:3, 3] - gt[:3, 3]) < 5e-3
+
+
+def test_engine_equals_its_own_slam_step_chain(frames):
+    """`Engine.process_frame` (first frame + `_frame_main`) against a chain
+    of the port's `slam_step` fed what the engine would feed it: bit-equal
+    poses and maps.  compact_every=1 because `slam_step` always compacts."""
+    _, port_cam, poses, rendered = frames
+    cfg = PortConfig(camera=port_cam, compact_every=1, **CFG)
+    eng = port_engine.Engine(cfg, device="cpu")
+    results = [eng.process_frame(rgb, d, timestamp=i, in_T_wc=poses[0] if i == 0 else None)
+               for i, (d, rgb) in enumerate(rendered)]
+
+    d0, rgb0 = rendered[0]
+    raw_m, filt_m = port_engine._preprocess(tt(d0.astype(np.float32)), cfg)
+    m = port_engine._init_map(raw_m, filt_m, tt(rgb0), cfg, CAP)
+    T0 = tt(np.asarray(poses[0], np.float32))
+    one = torch.tensor(1.0)
+    pred, fill, dense = port_engine._predict_only(
+        m, T0, one, one, filt_m, tt(rgb0), False, cfg)
+    state = convert.EngineState(
+        T=T0, so3_hist=port_engine._coarse_intensity(tt(rgb0), cfg), pred=pred, fill=fill)
+    steps = _port_chain(cfg, rendered, m, state, select_by_dense=True, dense=dense)
+
+    assert eng.map.capacity == CAP and eng.tick == N_FRAMES + 1
+    for res, step in zip(results[1:], steps):
+        np.testing.assert_array_equal(res.T_wc[:3, 3].astype(np.float32), step["T"][:3, 3])
+        assert res.surfel_count == step["count"] and res.fused and res.tracking_ok
+    for f in ("pos", "conf", "color", "normal", "radius", "init_t", "last_t"):
+        assert torch.equal(getattr(eng.map, f), getattr(steps[-1]["map"], f)), f
+    assert [ts for ts, _ in eng.poses] == list(range(N_FRAMES))
+    assert eng.surfel_count == steps[-1]["count"]
+
+
+def test_engine_grows_the_map_before_it_overflows(frames):
+    _, port_cam, poses, rendered = frames
+    cfg = PortConfig(camera=port_cam, closeLoops=False, confidence_threshold=0.3)
+    eng = port_engine.Engine(cfg, device="cpu")
+    d, rgb = rendered[0]
+    eng.process_frame(rgb, d)
+    cap0 = eng.map.capacity
+    assert cap0 == port_engine._next_bucket(19200 + 4800, cfg.max_surfels) == 1 << 16
+    eng._count_finished = int(0.9 * cap0)           # pretend the map filled up
+    eng.process_frame(rendered[1][1], rendered[1][0])
+    assert eng.map.capacity > cap0 and eng.map.capacity % 8192 == 0
+    assert eng.surfel_count < cap0 and np.isfinite(eng.T_wc).all()
+
+
+@pytest.mark.parametrize("flags,item", [
+    (dict(closeLoops=True), "M8"),
+    (dict(mesh_shape=(2,)), "M11"),
+    (dict(pipeline_depth=2), "M7"),
+    (dict(reloc_mode=True), "M7"),
+    (dict(fx16_tables=True), "M12"),
+])
+def test_unported_flags_raise(flags, item):
+    cfg = PortConfig(**{"closeLoops": False, **flags})
+    with pytest.raises(NotImplementedError, match=item):
+        port_engine.Engine(cfg, device="cpu")
+
+
+def test_unported_entry_points_raise(frames):
+    _, port_cam, poses, rendered = frames
+    cfg = PortConfig(camera=port_cam, closeLoops=False)
+    eng = port_engine.Engine(cfg, device="cpu")
+    d, rgb = rendered[0]
+    eng.process_frame(rgb, d, in_T_wc=poses[0])          # allowed on the first frame
+    with pytest.raises(NotImplementedError, match="in_T_wc"):
+        eng.process_frame(rgb, d, in_T_wc=poses[1])
+    with pytest.raises(NotImplementedError, match="M10"):
+        eng.restore_checkpoint("nowhere.npz")
+    with pytest.raises(NotImplementedError, match="fx16_clean"):   # default cfg sets it
+        port_engine.slam_step(eng.map, None, None, None, None, None, None, None, 2.0,
+                              1.0, cfg)
+
+
+def test_engine_needs_a_card_unless_the_cpu_is_asked_for():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device resolves")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port_engine.Engine(PortConfig(closeLoops=False))
+
+
+def test_port_imports_neither_jax_nor_the_reference_package():
+    code = (
+        "import sys\n"
+        "import elasticfusion_tpu_torch\n"
+        "import elasticfusion_tpu_torch.engine, elasticfusion_tpu_torch.convert\n"
+        "import elasticfusion_tpu_torch.utils.synthetic, elasticfusion_tpu_torch.utils.stopwatch\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m == 'elasticfusion_tpu' or m.startswith('elasticfusion_tpu.')]\n"
+        "assert not bad, bad\n"
+        "import torch\n"
+        "assert not torch.backends.cuda.matmul.allow_tf32\n"
+        "assert not torch.backends.cudnn.allow_tf32\n"
+        "print('clean')\n"
+    )
+    import os
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", code], cwd=repo, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "clean", out.stderr
