@@ -7,12 +7,16 @@
 
 Phases (any failure exits non-zero; nothing falls back to the CPU):
   1. environment: torch / CUDA versions, the card's name and power limit;
-  2. build of the three hand-written CUDA kernels from
-     `elasticfusion_tpu_torch/csrc/` (one nvcc per source, in parallel);
+  2. build of the hand-written CUDA kernels from
+     `elasticfusion_tpu_torch/csrc/` (one nvcc per source, in parallel), with
+     every kernel's registers and spills as ptxas reports them;
   3. every kernel against its plain PyTorch version on the card, at the shapes
      the main path gives it, then its time, the plain version's time, the
      time of the one library call that computes the same (where there is one)
-     and its bound from bytes and operations;
+     and its bound from bytes and operations.  The six kernels: `gram_outer`,
+     the fused tracking steps `icp_step`, `rgb_residual`, `rgb_step` (at all
+     three pyramid levels, on the tensors of a tracked frame),
+     `splat_resolve`, `fuse_window`;
   4. the main path: `Engine.process_frame` over 6 warm-up + 30 frames of the
      640x480 synthetic sweep, twice; launch counts, pose error against the
      known poses, surfel count, coverage, bit-identical repeat, ms/frame,
@@ -25,6 +29,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -37,6 +42,7 @@ if not torch.cuda.is_available():
     sys.exit(1)
 
 from elasticfusion_tpu_torch import _build, _device  # noqa: E402
+from elasticfusion_tpu_torch import tracking as tracking_mod  # noqa: E402
 from elasticfusion_tpu_torch.config import CameraConfig, EngineConfig  # noqa: E402
 from elasticfusion_tpu_torch.engine import Engine  # noqa: E402
 from elasticfusion_tpu_torch.ops import fuse as fuse_ops  # noqa: E402
@@ -46,6 +52,14 @@ from elasticfusion_tpu_torch.ops.fuse_window import (  # noqa: E402
     fuse_window_plain,
 )
 from elasticfusion_tpu_torch.ops.gram import gram_outer, gram_outer_plain  # noqa: E402
+from elasticfusion_tpu_torch.ops.odometry import (  # noqa: E402
+    compute_rgb_residual,
+    compute_rgb_residual_plain,
+    icp_step,
+    icp_step_plain,
+    rgb_step,
+    rgb_step_plain,
+)
 from elasticfusion_tpu_torch.ops.splat_resolve import (  # noqa: E402
     splat_resolve,
     splat_resolve_plain,
@@ -134,9 +148,28 @@ def phase_environment() -> str:
 def phase_build() -> None:
     print("== 2. build", flush=True)
     _build.build_all()
+    # ptxas -v: "Compiling entry function '<mangled>'", then its properties
+    # ("... bytes spill stores, ... bytes spill loads") and "Used N registers"
+    entry, spills, n_kernels = None, "", 0
     for line in _build.build_log.splitlines():
-        if "registers" in line or "error" in line or line.startswith("---"):
+        if line.startswith("---") or "error" in line:
             print("  " + line.strip(), flush=True)
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills = f"spill stores {m.group(1)} B, loads {m.group(2)} B"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            smem = re.search(r"(\d+) bytes smem", line)
+            print(f"    {entry}: {m.group(1)} registers, {spills}, "
+                  f"{smem.group(1) if smem else 0} B static shared", flush=True)
+            entry, n_kernels = None, n_kernels + 1
+    if _build.build_log:
+        check(n_kernels > 0, f"ptxas reported {n_kernels} kernels")
+    else:
+        print("  every library was already built: no ptxas report", flush=True)
     print(f"build_seconds {_build.build_seconds:.1f}", flush=True)
 
 
@@ -160,18 +193,28 @@ def engine_config(cam: CameraConfig) -> EngineConfig:
 
 def capture_kernel_inputs(cam, frames):
     """Run the first frames of the sweep and keep the tensors the main path
-    hands to K2 and K3 on the last of them: real winner channels and a real
-    fused frame, so hits, blends, merges and appends all occur."""
+    hands to its kernels on the last of them: real winner channels and a real
+    fused frame for K2 and K3 (so hits, blends, merges and appends all occur),
+    and for the tracking steps the arguments of the last Gauss-Newton iteration
+    at every pyramid level (keyed by the level's image height)."""
     captured = {}
 
-    def recording(name, fn):
-        def wrapper(*args):
-            captured[name] = args
-            return fn(*args)
+    def recording(name, fn, level_of=None):
+        def wrapper(*args, **kwargs):
+            kwargs_kept = {k: v for k, v in kwargs.items() if k != "out"}
+            key = name if level_of is None else (name, level_of(args))
+            captured[key] = (args, kwargs_kept) if level_of else args
+            return fn(*args, **kwargs)
         return wrapper
 
     splat_ops.splat_resolve = recording("splat_resolve", splat_resolve)
     fuse_ops.fuse_window = recording("fuse_window", fuse_window)
+    tracking_mod.icp_step = recording(
+        "icp_step", icp_step, lambda a: a[1].shape[1])
+    tracking_mod.compute_rgb_residual = recording(
+        "rgb_residual", compute_rgb_residual, lambda a: a[1].shape[0])
+    tracking_mod.rgb_step = recording(
+        "rgb_step", rgb_step, lambda a: a[2].shape[1])
     try:
         eng = Engine(engine_config(cam))
         for i in range(5):
@@ -181,7 +224,120 @@ def capture_kernel_inputs(cam, frames):
     finally:
         splat_ops.splat_resolve = splat_resolve
         fuse_ops.fuse_window = fuse_window
+        tracking_mod.icp_step = icp_step
+        tracking_mod.compute_rgb_residual = compute_rgb_residual
+        tracking_mod.rgb_step = rgb_step
     return captured
+
+
+def gram_agrees(what, got, plain, n_pixels):
+    """A, b and the sum of squares each within 1e-4 of that block's largest
+    entry (float32 sums over up to 307200 pixels in another order; the
+    tolerance of the CPU tests against the reference), the inlier count within
+    0.01 % of the pixels (a pixel that sits on a gate's threshold may fall on
+    the other side when a 3-term sum is contracted differently).  Returns the
+    worst absolute error and the count difference."""
+    worst = 0.0
+    for blk in ("A", "b", "sum_sq"):
+        g, p = getattr(got, blk), getattr(plain, blk)
+        scale, err = float(p.abs().max()), float((g - p).abs().max())
+        check(err <= 1e-4 * max(scale, 1e-12),
+              f"{what} {blk}: |err| {err:.3e} <= 1e-4 x {scale:.3e}")
+        worst = max(worst, err)
+    dc = abs(float(got.count) - float(plain.count))
+    check(dc <= 1e-4 * n_pixels and float(plain.count) >= 100,
+          f"{what} count {float(got.count):.0f} vs plain {float(plain.count):.0f} "
+          f"(net flips {dc:.0f}, allowed {1e-4 * n_pixels:.0f})")
+    return worst, dc
+
+
+def phase_tracking_kernels(cam, cap_in, entries):
+    """icp_step, rgb_residual, rgb_step against their plain versions at the
+    three pyramid levels, then their times."""
+    F32 = 4
+    by_level = {"icp_step": {}, "rgb_residual": {}, "rgb_step": {}}
+    for lvl in range(3):
+        H, W = cam.height >> lvl, cam.width >> lvl
+        N = H * W
+        tag = f"{W}x{H}"
+        for name in by_level:
+            check((name, H) in cap_in, f"the main path ran {name} at {tag}")
+
+        # --- ICP ---
+        a, kw = cap_in[("icp_step", H)]
+        got, again, plain = icp_step(*a, **kw), icp_step(*a, **kw), icp_step_plain(*a, **kw)
+        torch.cuda.synchronize()
+        err, _ = gram_agrees(f"icp_step {tag}", got, plain, N)
+        check(all(torch.equal(x, y) for x, y in zip(got, again)),
+              f"icp_step {tag} bit-identical on repeat")
+        v, n = a[1], a[2]
+        n_in = int(((v[2] > 0) & ((n * n).sum(0) > 1e-12)).sum())
+        b_ms, b_by = bound((6 * N + 6 * n_in + 24 + 44) * F32, 160.0 * n_in)
+        by_level["icp_step"][tag] = dict(
+            max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+            bytes=(6 * N + 6 * n_in + 24 + 44) * F32,
+            ms=time_ms(lambda: icp_step(*a, **kw), queue_first=True),
+            plain_ms=time_ms(lambda: icp_step_plain(*a, **kw), reps=5, warm=1))
+
+        # --- RGB residual ---
+        ra, rkw = cap_in[("rgb_residual", H)]
+        ck = compute_rgb_residual(*ra, **rkw)
+        ck2 = compute_rgb_residual(*ra, **rkw)
+        cp = compute_rgb_residual_plain(*ra, **rkw)
+        torch.cuda.synchronize()
+        valid_k = ck.flat0 >= 0
+        flips = int((valid_k != cp.valid).sum())
+        both = valid_k & cp.valid
+        flat_p = (cp.v0 * W + cp.u0).to(torch.int32)
+        moved = int((ck.flat0[both] != flat_p[both]).sum())
+        d_err = float((ck.diff[both] - cp.diff[both]).abs().max())
+        s_err = abs(float(ck.sigma_sum) - float(cp.sigma_sum))
+        check(flips <= 1e-4 * N and moved <= 1e-4 * N
+              and float(cp.count) >= 100
+              and abs(float(ck.count) - float(cp.count)) <= 1e-4 * N,
+              f"rgb_residual {tag}: count {float(ck.count):.0f} vs plain "
+              f"{float(cp.count):.0f}, {flips} validity flips, {moved} matches at "
+              f"another pixel (allowed {1e-4 * N:.0f} each)")
+        check(s_err <= 1e-4 * float(cp.sigma_sum) and d_err <= 1e-5,
+              f"rgb_residual {tag}: sum diff^2 |err| {s_err:.3e} <= 1e-4 x "
+              f"{float(cp.sigma_sum):.3e}; max |diff err| {d_err:.2e}")
+        check(torch.equal(ck.flat0, ck2.flat0) and torch.equal(ck.diff, ck2.diff)
+              and torch.equal(ck.count, ck2.count)
+              and torch.equal(ck.sigma_sum, ck2.sigma_sum),
+              f"rgb_residual {tag} bit-identical on repeat")
+        n_gate = int(rkw["static_gates"].sum())
+        n_valid = int(valid_k.sum())
+        r_bytes = N * (1 + 8) + n_gate * 12 + n_valid * 4 + (12 + 2) * F32
+        b_ms, b_by = bound(r_bytes, 30.0 * n_gate)
+        by_level["rgb_residual"][tag] = dict(
+            max_abs_err=s_err, bound_ms=b_ms, bound_by=b_by, bytes=r_bytes,
+            ms=time_ms(lambda: compute_rgb_residual(*ra, **rkw), queue_first=True),
+            plain_ms=time_ms(lambda: compute_rgb_residual_plain(*ra, **rkw),
+                             reps=5, warm=1))
+
+        # --- RGB step (sigma derived from the residual's sums on both sides) ---
+        sa, skw = cap_in[("rgb_step", H)]
+        rest = sa[2:]
+        got, again = rgb_step(ck, None, *rest), rgb_step(ck, None, *rest)
+        plain = rgb_step_plain(cp, None, *rest)
+        torch.cuda.synchronize()
+        err, _ = gram_agrees(f"rgb_step {tag}", got, plain, N)
+        check(all(torch.equal(x, y) for x, y in zip(got, again)),
+              f"rgb_step {tag} bit-identical on repeat")
+        s_bytes = N * 4 + n_valid * 24 + (2 + 43) * F32
+        b_ms, b_by = bound(s_bytes, 110.0 * n_valid)
+        by_level["rgb_step"][tag] = dict(
+            max_abs_err=err, bound_ms=b_ms, bound_by=b_by, bytes=s_bytes,
+            ms=time_ms(lambda: rgb_step(ck, None, *rest), queue_first=True),
+            plain_ms=time_ms(lambda: rgb_step_plain(cp, None, *rest), reps=5, warm=1))
+
+    full = f"{cam.width}x{cam.height}"
+    for name, levels in by_level.items():
+        entries[name] = dict(
+            name=name, route="cuda",
+            source="elasticfusion_tpu_torch/csrc/odometry_steps.cu",
+            replaces="elasticfusion_tpu/ops/gram_pallas.py:24",
+            library_ms=None, levels=levels, **levels[full])
 
 
 def phase_kernels(cam, frames):
@@ -214,25 +370,30 @@ def phase_kernels(cam, frames):
                   f"K1 gram_outer K={K} N={N}: |err| vs f64 {e64:.3e}, vs plain "
                   f"{ep:.3e} (scale {scale:.3e}, tolerance 1e-5 relative)")
             check(torch.equal(got, again), f"K1 K={K} N={N} bit-identical on repeat")
-    K, N = 7, HW
-    rows = torch.from_numpy(rng.standard_normal((K, N)).astype(np.float32)).to(DEV)
-    b_ms, b_by = bound((K * N + K * K) * 4, 2.0 * K * K * N)
+    # timed at the main path's shape (the SO(3) rows, K=4 at 160x120) and, for
+    # comparison across versions, at the shape of a full-resolution step
+    def timed(K, N):
+        rows = torch.from_numpy(rng.standard_normal((K, N)).astype(np.float32)).to(DEV)
+        b_ms, b_by = bound((K * N + K * K) * 4, 2.0 * K * K * N)
+        return dict(
+            ms=time_ms(lambda: gram_outer(rows), queue_first=True),
+            plain_ms=time_ms(lambda: gram_outer_plain(rows), reps=10),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=time_ms(lambda: torch.matmul(rows, rows.T), queue_first=True),
+            bytes=(K * N + K * K) * 4)
+
+    levels = {f"K=4 N={HW // 16}": timed(4, HW // 16), f"K=7 N={HW}": timed(7, HW)}
     entries["gram_outer"] = dict(
         name="gram_outer", route="cuda",
         source="elasticfusion_tpu_torch/csrc/gram.cu",
         replaces="elasticfusion_tpu/ops/gram_pallas.py:24",
-        max_abs_err=k1_err,
-        ms=time_ms(lambda: gram_outer(rows), queue_first=True),
-        plain_ms=time_ms(lambda: gram_outer_plain(rows), reps=10),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=time_ms(lambda: torch.matmul(rows, rows.T), queue_first=True),
-        bytes=(K * N + K * K) * 4,
-    )
+        max_abs_err=k1_err, levels=levels, **levels[f"K=4 N={HW // 16}"])
 
     # --- K2 and K3 on tensors of a real frame -------------------------------
     cap_in = capture_kernel_inputs(cam, frames)
-    check(set(cap_in) == {"splat_resolve", "fuse_window"},
+    check({"splat_resolve", "fuse_window"} <= set(cap_in),
           "the main path handed inputs to K2 and K3")
+    phase_tracking_kernels(cam, cap_in, entries)
 
     # K2.  tolerance: built without FMA contraction the kernel repeats the
     # plain version's roundings, so hit / front decisions agree; at most 0.01 %
@@ -310,14 +471,18 @@ def phase_kernels(cam, frames):
         bytes=34 * HW * 4,
     )
     for e in entries.values():
-        print(f"  {e['name']}: kernel {e['ms']:.4f} ms, plain {e['plain_ms']:.3f} ms, "
-              f"library {e['library_ms']}, bound {e['bound_ms']:.5f} ms by "
-              f"{e['bound_by']} ({e['bytes']} bytes)", flush=True)
+        for tag, lv in e.get("levels", {"": e}).items():
+            print(f"  {e['name']} {tag}: kernel {lv['ms']:.4f} ms, plain "
+                  f"{lv['plain_ms']:.3f} ms, library "
+                  f"{lv.get('library_ms', e['library_ms'])}, bound "
+                  f"{lv['bound_ms']:.5f} ms by {lv['bound_by']} ({lv['bytes']} bytes)",
+                  flush=True)
     return entries
 
 
-WRAPPERS = {"gram_outer": gram_outer, "splat_resolve": splat_resolve,
-            "fuse_window": fuse_window}
+WRAPPERS = {"gram_outer": gram_outer, "icp_step": icp_step,
+            "rgb_residual": compute_rgb_residual, "rgb_step": rgb_step,
+            "splat_resolve": splat_resolve, "fuse_window": fuse_window}
 
 
 def run_sweep(cam, frames):
@@ -353,14 +518,31 @@ def phase_main_path(cam, frames, gt_poses):
     global _BLOCKER
     _BLOCKER = None          # phase 3's scratch must not count as the path's memory
     torch.cuda.reset_peak_memory_stats()
+    tracker_reads = []
+    real_read_back = tracking_mod.read_back
+    tracking_mod.read_back = lambda t: (tracker_reads.append(t.numel()),
+                                        real_read_back(t))[1]
     for w in WRAPPERS.values():
         w.launches = 0
-    run = run_sweep(cam, frames)
+    try:
+        run = run_sweep(cam, frames)
+    finally:
+        tracking_mod.read_back = real_read_back
     launches = {k: w.launches for k, w in WRAPPERS.items()}
     peak = torch.cuda.max_memory_allocated()
+    tracked = N_WARM + N_BENCH - 1
     for k, n in launches.items():
         check(n > 0, f"{k} launched {n} times on the main path "
-                     f"({n / (N_WARM + N_BENCH - 1):.1f} per tracked frame)")
+                     f"({n / tracked:.1f} per tracked frame)")
+    # one read per iteration and nothing else: every Gauss-Newton iteration is
+    # its three launches and one read, every SO(3) iteration one Gram and one
+    # read, every tracked frame one read of the previous pose
+    gn = launches["icp_step"]
+    check(launches["rgb_residual"] == gn and launches["rgb_step"] == gn
+          and len(tracker_reads) == tracked + launches["gram_outer"] + gn,
+          f"tracker reads {len(tracker_reads)} = {tracked} poses + "
+          f"{launches['gram_outer']} SO(3) + {gn} Gauss-Newton iterations, each "
+          f"of which launched icp_step, rgb_residual and rgb_step once")
 
     poses = np.stack(run["poses"])
     check(bool(np.isfinite(poses).all()), "all poses finite")

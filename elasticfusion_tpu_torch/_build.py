@@ -4,8 +4,9 @@ Each source has a plain C interface (`extern "C"` launchers taking raw
 pointers, sizes and the stream) and is compiled by its own `nvcc` process —
 all started together — into a shared library that `ctypes` loads.  No source
 includes PyTorch's headers, so a build takes seconds.  Libraries go to
-`<checkout>/build/elasticfusion_tpu_torch/`, named by a hash of source and
-flags, and are reused while that hash matches.  Nothing happens at import:
+`<checkout>/build/elasticfusion_tpu_torch/`, named by a hash of the source,
+the `csrc/` headers it includes and the flags, and are reused while that hash
+matches.  Nothing happens at import:
 the first kernel launch triggers the build, and a failed build raises.
 """
 
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -27,11 +29,14 @@ _COMMON_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-# The two stencils decide hits and matches by float comparisons; without FMA
-# contraction every operation rounds as the plain PyTorch versions' do, so
-# the decisions agree.  The Gram sum has no decisions and keeps its FMAs.
+# The stencils and the fused odometry steps decide hits, matches and inliers
+# by float comparisons; without FMA contraction every operation rounds as the
+# plain PyTorch versions' do, so the decisions agree (the odometry steps spell
+# out the FMAs of their matrix products and Gram sums).  The Gram sum alone has
+# no decisions and keeps its FMAs.
 SOURCES: Dict[str, List[str]] = {
     "gram": [],
+    "odometry_steps": ["-fmad=false"],
     "splat_resolve": ["-fmad=false"],
     "fuse_window": ["-fmad=false"],
 }
@@ -53,12 +58,29 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def source_files(name: str) -> List[str]:
+    """`csrc/<name>.cu` and every file under `csrc/` it includes, directly or
+    through another header, in a fixed order."""
+    todo, seen = [name + ".cu"], []
+    while todo:
+        rel = todo.pop()
+        if rel in seen:
+            continue
+        seen.append(rel)
+        with open(os.path.join(_CSRC, rel), "rb") as f:
+            todo.extend(sorted(m.decode() for m in _INCLUDE.findall(f.read())))
+    return [os.path.join(_CSRC, rel) for rel in seen]
+
+
 def _target(name: str) -> str:
-    with open(os.path.join(_CSRC, name + ".cu"), "rb") as f:
-        digest = hashlib.sha1(
-            f.read() + " ".join(_COMMON_FLAGS + SOURCES[name]).encode()
-        ).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+    h = hashlib.sha1(" ".join(_COMMON_FLAGS + SOURCES[name]).encode())
+    for path in source_files(name):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:12]}.so")
 
 
 def build_all() -> None:

@@ -5,22 +5,50 @@ original system's CUDA reduction kernels (Core/Cuda/reduce.cu):
   - rgbStep           (reduce.cu:403-550)  photometric Jacobian rows
   - so3Step           (reduce.cu:789-973)  rotation-only LK pre-alignment
 
-Each step computes per-pixel rows [J | r] over the whole image, then forms
-the Gram matrix G = rows·rowsᵀ with the K1 kernel (ops/gram.py).  G holds the
-6×6 normal matrix A = G[:6,:6], the rhs b = G[:6,6] and Σr² = G[6,6] — the 29
-floats of the original two-stage tree reduction.
+Each step computes per-pixel rows [J | r] over the whole image and forms the
+Gram matrix G = rows·rowsᵀ.  G holds the 6×6 normal matrix A = G[:6,:6], the
+rhs b = G[:6,6] and Σr² = G[6,6] — the 29 floats of the original two-stage
+tree reduction.
+
+`icp_step`, `compute_rgb_residual` and `rgb_step` are kernel wrappers: for
+CUDA tensors each is ONE launch of a hand-written kernel of
+`csrc/odometry_steps.cu` that builds the row in registers and reduces it in
+the same kernel (the design of reduce.cu), so no per-pixel intermediate
+reaches device memory; on the tracker's path they replace the Pallas kernel
+`gram_outer_pallas` (elasticfusion_tpu/ops/gram_pallas.py:24) and the
+elementwise chain that fed it.  For CPU tensors they run the plain versions
+`icp_step_plain`, `compute_rgb_residual_plain`, `rgb_step_plain`, which write
+the rows out and reduce them with `gram_outer`.  `so3_step` still does that
+on either device.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from .._build import check_launch, kernel_function
 from ..surfels import pixel_grid
-from .gram import gram_outer
+from .gram import gram_outer, reduction_grid, reduction_scratch
 from .preprocess import SOBEL_SCALE
+
+_PIXELS_PER_THREAD = 1
+_P, _F, _I = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
+# T_curr, T_prev, vmap, nmap, prev_table, H, W, fx, fy, cx, cy, dist, sine,
+# partials, ticket, n_blocks, out, stream
+_ICP_ARGTYPES = (_P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _F,
+                 _P, _P, _I, _P, _P)
+# gates, next_depth, next_image, last_table, krkinv, kt, H, W, max_depth_delta,
+# flat0, diff, partials, ticket, n_blocks, stats, stream
+_RGB_RESIDUAL_ARGTYPES = (_P, _P, _P, _P, _P, _P, _I, _I, _F,
+                          _P, _P, _P, _P, _I, _P, _P)
+# flat0, diff, stats, sigma, cloud, dIdx, dIdy, N, fx, fy, sobel_scale,
+# partials, ticket, n_blocks, out_Ab, sum_sq, stream
+_RGB_STEP_ARGTYPES = (_P, _P, _P, _P, _P, _P, _P, _I, _F, _F, _F,
+                      _P, _P, _I, _P, _P, _P)
 
 
 class Gram(NamedTuple):
@@ -37,6 +65,44 @@ def _gram_from_rows(rows: torch.Tensor, valid: torch.Tensor) -> Gram:
     G = gram_outer(rows.contiguous())
     return Gram(A=G[:6, :6], b=G[:6, 6], sum_sq=G[6, 6],
                 count=valid.to(torch.float32).sum())
+
+
+def _cuda_device(what: str, like: torch.Tensor, **tensors) -> torch.device:
+    """The card `like` lives on; raises unless every tensor is a contiguous
+    float32 (bool for `gates`) tensor on that same card."""
+    dev = like.device
+    if dev.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {dev}")
+    for name, t in tensors.items():
+        want = torch.bool if name == "gates" else torch.float32
+        if t.device != dev or t.dtype != want or not t.is_contiguous():
+            raise ValueError(
+                f"{what}: {name} must be a contiguous {want} tensor on {dev}, "
+                f"got {t.dtype} on {t.device}, contiguous={t.is_contiguous()}")
+    return dev
+
+
+def _out_buffer(what: str, out: Optional[torch.Tensor], n: int,
+                dev: torch.device) -> torch.Tensor:
+    """The caller's `[n]` result slice, or a fresh one."""
+    if out is None:
+        return torch.empty((n,), dtype=torch.float32, device=dev)
+    if (out.shape != (n,) or out.dtype != torch.float32 or out.device != dev
+            or not out.is_contiguous()):
+        raise ValueError(f"{what}: out must be a contiguous float32 [{n}] on {dev}")
+    return out
+
+
+def _store_gram(g: Gram, out: Optional[torch.Tensor], with_stats: bool) -> Gram:
+    """Plain path of `out=`: A (36, row-major), b (6) and, `with_stats`,
+    Σr² and the count, copied into the caller's slice."""
+    if out is not None:
+        out[0:36] = g.A.reshape(-1)
+        out[36:42] = g.b
+        if with_stats:
+            out[42] = g.sum_sq
+            out[43] = g.count
+    return g
 
 
 def _flat_xy(H: int, W: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -97,7 +163,7 @@ def rgb_static_gates(
     return (nb_ok & bounds & grad_ok & (next_depth > 0)).reshape(H * W)
 
 
-def icp_step(
+def icp_step_plain(
     T_curr: torch.Tensor,       # (4,4) current world←camera estimate
     vmap_curr: torch.Tensor,    # (3,H,W) current frame camera-space vertices
     nmap_curr: torch.Tensor,    # (3,H,W) current frame normals
@@ -166,24 +232,80 @@ def icp_step(
     return _gram_from_rows(rows, found)
 
 
+def icp_step(
+    T_curr: torch.Tensor, vmap_curr: torch.Tensor, nmap_curr: torch.Tensor,
+    T_prev: torch.Tensor, vmap_g_prev: torch.Tensor, nmap_g_prev: torch.Tensor,
+    fx: float, fy: float, cx: float, cy: float,
+    dist_thresh: float = 0.10,
+    angle_thresh_sin: float = 0.342020143,
+    prev_table: Optional[torch.Tensor] = None,
+    out: Optional[torch.Tensor] = None,
+) -> Gram:
+    """`icp_step_plain` for CPU tensors; for CUDA tensors one launch of
+    `ef_icp_step`.  `out`, when given, is a float32 `[44]` slice that receives
+    A (36, row-major), b (6), Σr², count — the returned Gram then views it."""
+    if vmap_curr.device.type == "cpu":
+        return _store_gram(icp_step_plain(
+            T_curr, vmap_curr, nmap_curr, T_prev, vmap_g_prev, nmap_g_prev,
+            fx, fy, cx, cy, dist_thresh, angle_thresh_sin, prev_table), out, True)
+    if prev_table is None:
+        prev_table = icp_prev_table(vmap_g_prev, nmap_g_prev)
+    dev = _cuda_device("icp_step", vmap_curr, T_curr=T_curr, T_prev=T_prev,
+                       vmap_curr=vmap_curr, nmap_curr=nmap_curr,
+                       prev_table=prev_table)
+    _, H, W = vmap_curr.shape
+    if (T_curr.shape != (4, 4) or T_prev.shape != (4, 4)
+            or nmap_curr.shape != (3, H, W) or prev_table.shape != (6, H * W)):
+        raise ValueError("icp_step: wants (4,4) poses, (3,H,W) maps and a (6,H*W) table")
+    out = _out_buffer("icp_step", out, 44, dev)
+    partials, ticket = reduction_scratch("icp_step", dev, 29)
+    fn = kernel_function("odometry_steps", "ef_icp_step", _ICP_ARGTYPES)
+    with torch.cuda.device(dev):
+        code = fn(T_curr.data_ptr(), T_prev.data_ptr(), vmap_curr.data_ptr(),
+                  nmap_curr.data_ptr(), prev_table.data_ptr(), H, W,
+                  fx, fy, cx, cy, dist_thresh, angle_thresh_sin,
+                  partials.data_ptr(), ticket.data_ptr(),
+                  reduction_grid(H * W, _PIXELS_PER_THREAD), out.data_ptr(),
+                  torch.cuda.current_stream().cuda_stream)
+    check_launch(code, "icp_step")
+    icp_step.launches += 1
+    return Gram(A=out[0:36].view(6, 6), b=out[36:42], sum_sq=out[42], count=out[43])
+
+
+icp_step.launches = 0
+
+
 # ---------------------------------------------------------------------------
 # RGB photometric residual + step — reduce.cu:403-550, 603-787
 # ---------------------------------------------------------------------------
 
 
 class RgbCorrespondence(NamedTuple):
-    """Vectorized DataTerm image (types.cuh:79-84)."""
+    """Vectorized DataTerm image (types.cuh:79-84).  The plain version fills
+    `u0`, `v0`, `valid` (and `p`); the kernel leaves the compact record
+    `flat0` instead, and its `sigma_sum`, `count` are neighbours in one
+    buffer so that `rgb_step` can hand both to its kernel."""
 
-    u0: torch.Tensor        # [N] matched pixel x in last image
-    v0: torch.Tensor        # [N] matched pixel y in last image
-    diff: torch.Tensor      # [N] intensity difference next−last
-    valid: torch.Tensor     # [N] bool
-    count: torch.Tensor     # scalar
-    sigma_sum: torch.Tensor  # scalar Σdiff²
-    p: Optional[torch.Tensor] = None  # [3,N] last-cloud point at (v0,u0)
+    u0: Optional[torch.Tensor]     # [N] matched pixel x in last image
+    v0: Optional[torch.Tensor]     # [N] matched pixel y in last image
+    diff: torch.Tensor             # [N] intensity difference next−last, 0 where invalid
+    valid: Optional[torch.Tensor]  # [N] bool
+    count: torch.Tensor            # scalar
+    sigma_sum: torch.Tensor        # scalar Σdiff²
+    p: Optional[torch.Tensor] = None      # [3,N] last-cloud point at (v0,u0)
+    flat0: Optional[torch.Tensor] = None  # [N] int32 v0·W+u0, −1 where invalid
 
 
-def compute_rgb_residual(
+def rgb_sigma_val(count: torch.Tensor, sigma_sum: torch.Tensor) -> torch.Tensor:
+    """σ of `rgb_step`'s weight as the original derives it
+    (RGBDOdometry.cpp:441): operator precedence there makes it sqrt(count)
+    unless Σdiff² is 0 (then 1) or the count is 0 (then 0)."""
+    return torch.sqrt(torch.where(
+        count == 0, torch.zeros_like(count),
+        torch.where(sigma_sum == 0, torch.ones_like(count), count)))
+
+
+def compute_rgb_residual_plain(
     min_grad2_scaled: float,
     dIdx: torch.Tensor, dIdy: torch.Tensor,        # (H,W) next-image gradients
     last_depth: torch.Tensor, next_depth: torch.Tensor,  # (H,W) m, 0 invalid
@@ -234,9 +356,70 @@ def compute_rgb_residual(
     )
 
 
-def rgb_step(
+def compute_rgb_residual(
+    min_grad2_scaled: float,
+    dIdx: torch.Tensor, dIdy: torch.Tensor,
+    last_depth: torch.Tensor, next_depth: torch.Tensor,
+    last_image: torch.Tensor, next_image: torch.Tensor,
+    kt: torch.Tensor, krkinv: torch.Tensor,
+    max_depth_delta: float = 0.07,
+    last_table: Optional[torch.Tensor] = None,
+    static_gates: Optional[torch.Tensor] = None,
+    out: Optional[torch.Tensor] = None,
+) -> RgbCorrespondence:
+    """`compute_rgb_residual_plain` for CPU tensors; for CUDA tensors one
+    launch of `ef_rgb_residual`, which sums Σdiff² and the count and leaves
+    per pixel only the record `flat0`, `diff` that `rgb_step` reads (8 bytes;
+    that kernel then needs neither the pose nor the depth maps again).
+    `out`, when given, is a float32 `[2]` slice that receives Σdiff², count."""
+    if next_image.device.type == "cpu":
+        c = compute_rgb_residual_plain(
+            min_grad2_scaled, dIdx, dIdy, last_depth, next_depth, last_image,
+            next_image, kt, krkinv, max_depth_delta, last_table, static_gates)
+        if out is not None:
+            out[0] = c.sigma_sum
+            out[1] = c.count
+        return c
+    if static_gates is None:
+        static_gates = rgb_static_gates(
+            min_grad2_scaled, dIdx, dIdy, next_depth, next_image)
+    if last_table is None:
+        last_table = rgb_last_table(last_depth, last_image)
+    dev = _cuda_device("compute_rgb_residual", next_image, gates=static_gates,
+                       next_depth=next_depth, next_image=next_image,
+                       last_table=last_table, krkinv=krkinv, kt=kt)
+    H, W = next_image.shape
+    N = H * W
+    if (static_gates.shape != (N,) or next_depth.shape != (H, W)
+            or last_table.dim() != 2 or last_table.shape[0] < 2
+            or last_table.shape[1] != N or krkinv.shape != (3, 3)
+            or kt.shape != (3,)):
+        raise ValueError("compute_rgb_residual: wants (H,W) images, (H*W,) gates, "
+                         "a (>=2,H*W) table, (3,3) krkinv and (3,) kt")
+    stats = _out_buffer("compute_rgb_residual", out, 2, dev)
+    flat0 = torch.empty((N,), dtype=torch.int32, device=dev)
+    diff = torch.empty((N,), dtype=torch.float32, device=dev)
+    partials, ticket = reduction_scratch("rgb_residual", dev, 2)
+    fn = kernel_function("odometry_steps", "ef_rgb_residual", _RGB_RESIDUAL_ARGTYPES)
+    with torch.cuda.device(dev):
+        code = fn(static_gates.data_ptr(), next_depth.data_ptr(),
+                  next_image.data_ptr(), last_table.data_ptr(),
+                  krkinv.data_ptr(), kt.data_ptr(), H, W, max_depth_delta,
+                  flat0.data_ptr(), diff.data_ptr(), partials.data_ptr(),
+                  ticket.data_ptr(), reduction_grid(N, _PIXELS_PER_THREAD),
+                  stats.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    check_launch(code, "compute_rgb_residual")
+    compute_rgb_residual.launches += 1
+    return RgbCorrespondence(u0=None, v0=None, diff=diff, valid=None,
+                             count=stats[1], sigma_sum=stats[0], flat0=flat0)
+
+
+compute_rgb_residual.launches = 0
+
+
+def rgb_step_plain(
     corres: RgbCorrespondence,
-    sigma: torch.Tensor,        # scalar (or -1.0 for rgbOnly even weighting)
+    sigma: Optional[torch.Tensor],  # scalar (-1.0: rgbOnly even weighting)
     cloud: torch.Tensor,        # (3,H,W) back-projected lastDepth (level intr.)
     fx: float, fy: float,
     dIdx: torch.Tensor, dIdy: torch.Tensor,
@@ -244,9 +427,12 @@ def rgb_step(
     """Photometric Jacobian rows, mirroring RGBReduction::getProducts
     (reduce.cu:420-478): gradients read at the *next*-image pixel, the 3D
     point read from the back-projected *last* depth at the matched pixel,
-    Huber-like weight w = 1/(σ+|diff|)."""
+    Huber-like weight w = 1/(σ+|diff|).  `sigma=None` derives σ from the
+    correspondence (`rgb_sigma_val`)."""
     C, H, W = cloud.shape
     N = H * W
+    if sigma is None:
+        sigma = rgb_sigma_val(corres.count, corres.sigma_sum)
 
     w = sigma + torch.abs(corres.diff)
     w = torch.where(w > 1.19209290e-07, 1.0 / w, torch.ones_like(w))
@@ -279,6 +465,60 @@ def rgb_step(
     )  # [7,N]
     rows = torch.where(corres.valid[None, :], rows, torch.zeros_like(rows))
     return _gram_from_rows(rows, corres.valid)
+
+
+def rgb_step(
+    corres: RgbCorrespondence,
+    sigma: Optional[torch.Tensor],
+    cloud: torch.Tensor,
+    fx: float, fy: float,
+    dIdx: torch.Tensor, dIdy: torch.Tensor,
+    out: Optional[torch.Tensor] = None,
+) -> Gram:
+    """`rgb_step_plain` for CPU tensors; for CUDA tensors one launch of
+    `ef_rgb_step` on the record a CUDA `compute_rgb_residual` left.  With
+    `sigma=None` the kernel derives σ from the Σdiff² and count that the
+    residual kernel wrote, so nothing runs between the two.  `out`, when
+    given, is a float32 `[42]` slice that receives A (36, row-major), b (6)."""
+    if cloud.device.type == "cpu":
+        return _store_gram(
+            rgb_step_plain(corres, sigma, cloud, fx, fy, dIdx, dIdy), out, False)
+    if corres.flat0 is None:
+        raise ValueError("rgb_step: on a card the correspondence must come from "
+                         "compute_rgb_residual on that card")
+    tensors = dict(cloud=cloud, dIdx=dIdx, dIdy=dIdy, diff=corres.diff)
+    if sigma is not None:
+        tensors["sigma"] = sigma
+    dev = _cuda_device("rgb_step", cloud, **tensors)
+    _, H, W = cloud.shape
+    N = H * W
+    if (dIdx.shape != (H, W) or dIdy.shape != (H, W) or corres.diff.shape != (N,)
+            or corres.flat0.shape != (N,) or corres.flat0.device != dev
+            or (sigma is not None and sigma.numel() != 1)):
+        raise ValueError("rgb_step: wants a (3,H,W) cloud, (H,W) gradients, an "
+                         "(H*W,) record and a one-element sigma")
+    stats = corres.sigma_sum
+    if corres.count.data_ptr() != stats.data_ptr() + 4:
+        raise ValueError("rgb_step: corres.sigma_sum and corres.count must be "
+                         "neighbours in one buffer")
+    out = _out_buffer("rgb_step", out, 42, dev)
+    sum_sq = torch.empty((), dtype=torch.float32, device=dev)
+    partials, ticket = reduction_scratch("rgb_step", dev, 28)
+    fn = kernel_function("odometry_steps", "ef_rgb_step", _RGB_STEP_ARGTYPES)
+    with torch.cuda.device(dev):
+        code = fn(corres.flat0.data_ptr(), corres.diff.data_ptr(),
+                  stats.data_ptr(), None if sigma is None else sigma.data_ptr(),
+                  cloud.data_ptr(), dIdx.data_ptr(), dIdy.data_ptr(), N,
+                  fx, fy, SOBEL_SCALE, partials.data_ptr(), ticket.data_ptr(),
+                  reduction_grid(N, _PIXELS_PER_THREAD), out.data_ptr(),
+                  sum_sq.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    check_launch(code, "rgb_step")
+    rgb_step.launches += 1
+    return Gram(A=out[0:36].view(6, 6), b=out[36:42], sum_sq=sum_sq,
+                count=corres.count)
+
+
+rgb_step.launches = 0
 
 
 # ---------------------------------------------------------------------------

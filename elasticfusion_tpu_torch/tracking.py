@@ -3,14 +3,21 @@
 259-571): SO(3) pre-alignment, then a 3-level coarse-to-fine Gauss-Newton on
 the joint ICP + RGB normal equations.
 
-The per-pixel work of every iteration (rows, Gram reduction through the K1
-kernel) runs on the tensors' device.  The reference package's
-`lax.while_loop`s are Python loops here: each iteration packs the 7×7 Gram
-matrices and the counts into one small tensor and reads it back ONCE
-(`_device.read_back`), the 6×6 solve, the pose update and the exit tests then
-run on the host in float32 with the reference's arithmetic, and the new pose
-goes back as one small upload.  So a frame costs at most
-`so3_iterations + sum(gn_iterations) + 1` reads here (10 + 19 + 1 by default).
+The per-pixel work of every iteration runs on the tensors' device.  The
+reference package's `lax.while_loop`s are Python loops here.  A Gauss-Newton
+iteration on a card is one small upload (pose, K·R·K⁻¹, K·t), three kernel
+launches (`compute_rgb_residual`, `rgb_step`, `icp_step`, each of which builds
+its rows in registers and writes its normal equations straight into its slice
+of one 88-float pack buffer) and ONE read of that buffer
+(`_device.read_back`); the 6×6 solve, the pose update and the exit tests then
+run on the host in float32 with the reference's arithmetic.  The SO(3)
+pre-alignment still writes its `[4,N]` rows and reduces them with `gram_outer`.
+So a frame costs at most `so3_iterations + sum(gn_iterations) + 1` reads here
+(10 + 19 + 1 by default).
+
+Layout of the pack buffer: `[0:36]` ICP A, `[36:42]` ICP b, `[42]` ICP Σr²,
+`[43]` ICP count, `[44:80]` RGB A, `[80:86]` RGB b, `[86]` Σdiff², `[87]` RGB
+count; a half whose term is switched off stays zero.
 """
 
 from __future__ import annotations
@@ -202,8 +209,13 @@ def get_incremental_transformation(
         rgb_error=_F32(0.0), rgb_count=_F32(0.0),
         A=np.zeros((6, 6), np.float32), b=np.zeros((6,), np.float32),
     )
-    zero_d = torch.zeros((), dtype=torch.float32, device=dev)
-    zero44 = torch.zeros((44,), dtype=torch.float32, device=dev)
+    # every step overwrites its slice in every iteration; the read at the end
+    # of an iteration orders the reuse
+    pack = torch.zeros((88,), dtype=torch.float32, device=dev)
+    # rgbOnly weighs every pixel evenly (sigma = -1); otherwise rgb_step derives
+    # sigma from what compute_rgb_residual counted
+    sigma_arg = (torch.full((), -1.0, dtype=torch.float32, device=dev)
+                 if cfg.rgb_only else None)
 
     for lvl in range(n_lvls - 1, -1, -1):
         if iters[lvl] == 0:
@@ -249,36 +261,24 @@ def get_incremental_transformation(
                     inputs.last_images[lvl], inputs.next_images[lvl],
                     kt_d, krkinv_d,
                     last_table=last_table, static_gates=static_gates,
+                    out=pack[86:88],
                 )
-                sigma, rgb_size_d = corres.sigma_sum, corres.count
-                # reference quirk (RGBDOdometry.cpp:441): operator precedence
-                # makes sigmaVal = sqrt(count) unless σ==0 or count==0
-                sigma_val = torch.sqrt(torch.where(
-                    rgb_size_d == 0, zero_d,
-                    torch.where(sigma == 0, torch.ones_like(sigma), rgb_size_d)))
-                if cfg.rgb_only:
-                    sigma_val = torch.full_like(sigma_val, -1.0)
-                gr = rgb_step(corres, sigma_val, cloud, c.fx, c.fy, dIdx, dIdy)
-                rgb_pack = [gr.A.reshape(-1), gr.b, sigma[None], rgb_size_d[None]]
-            else:
-                rgb_pack = [zero44]
+                rgb_step(corres, sigma_arg, cloud, c.fx, c.fy, dIdx, dIdy,
+                         out=pack[44:86])
 
             if icp_on:
-                gi = icp_step(
+                icp_step(
                     T_curr_d,
                     inputs.vmaps_curr[lvl], inputs.nmaps_curr[lvl],
                     T_prev_d,
                     inputs.vmaps_prev_g[lvl], inputs.nmaps_prev_g[lvl],
                     c.fx, c.fy, c.cx, c.cy,
                     cfg.dist_threshold, cfg.angle_threshold_sin,
-                    prev_table=prev_table,
+                    prev_table=prev_table, out=pack[0:44],
                 )
-                icp_pack = [gi.A.reshape(-1), gi.b, gi.sum_sq[None], gi.count[None]]
-            else:
-                icp_pack = [zero44]
 
             # the iteration's one device→host read
-            got = read_back(torch.cat(icp_pack + rgb_pack))
+            got = read_back(pack)
             Ai, bi = got[0:36].reshape(6, 6), got[36:42]
             icp_sum_sq, icp_count = got[42], got[43]
             Ar, br = got[44:80].reshape(6, 6), got[80:86]

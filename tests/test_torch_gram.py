@@ -54,3 +54,38 @@ def test_gram_launch_counter_counts_kernel_launches_only():
     before = gram_outer.launches
     gram_outer(tt(_rows(7, 300, 1)))
     assert gram_outer.launches == before       # the CPU path launches nothing
+
+
+def _sum_in_block_order(partials):
+    """The former second stage: entry t = partials[0][t] + partials[1][t] + ...
+    in float32, block after block."""
+    s = np.zeros(partials.shape[1], np.float32)
+    for row in partials:
+        s = (s + row).astype(np.float32)
+    return s
+
+
+def _sum_by_last_block(partials, stage_floats=8192):
+    """The single-launch finish of csrc/gram_reduce.cuh: the last block copies
+    the partials into shared memory `stage_floats // T` blocks at a time and
+    thread t goes on adding its entries from there, block after block."""
+    n_blocks, T = partials.shape
+    chunk = stage_floats // T
+    s = np.zeros(T, np.float32)
+    for first in range(0, n_blocks, chunk):
+        stage = partials[first:first + chunk].reshape(-1).copy()
+        for b in range(min(chunk, n_blocks - first)):
+            s = (s + stage[b * T:(b + 1) * T]).astype(np.float32)
+    return s
+
+
+# T = K(K+1)/2 (+1 for the ICP step's count); 8192 // 136 = 60 blocks per
+# round, so K = 16 takes five rounds for 264 blocks and a ragged last one
+@pytest.mark.parametrize("T,n_blocks", [(136, 264), (29, 264), (28, 75), (10, 19), (2, 1)])
+def test_last_block_sum_equals_two_stage_order(T, n_blocks):
+    rng = np.random.default_rng(T * 1000 + n_blocks)
+    partials = (rng.standard_normal((n_blocks, T)) * 1e3).astype(np.float32)
+    got = _sum_by_last_block(partials)
+    np.testing.assert_array_equal(got, _sum_in_block_order(partials))
+    ref64 = partials.astype(np.float64).sum(0)
+    np.testing.assert_allclose(got, ref64, rtol=0, atol=1e-5 * np.abs(partials).sum(0).max())

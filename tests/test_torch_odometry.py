@@ -8,6 +8,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from _torch_parity import SMALL_CAM, both_cams, nn, rot_err, tt
 from elasticfusion_tpu import tracking as ref_tracking
@@ -138,6 +139,74 @@ def test_rgb_residual_and_step_29_floats(world):
     np.testing.assert_allclose(float(corres.sigma_sum), float(r["corres_sigma"]), rtol=2e-3)
     got = port_odo.rgb_step(corres, tt(r["sigma"]), tt(r["cloud"]), c.fx, c.fy, dIdx, dIdy)
     _assert_gram(got, r["rgb"], 43)
+
+
+def test_plain_path_fills_the_pack_in_the_tracker_s_layout(world):
+    """`out=` slices of one 88-float buffer, as `tracking.py` passes them:
+    ICP A|b|Σr²|count at 0|36|42|43, RGB A|b at 44|80, Σdiff²|count at 86|87."""
+    w, i, c = world, world["inputs"], world["port_cam"]
+    dIdx, dIdy = tt(w["ref"]["dIdx"]), tt(w["ref"]["dIdy"])
+    pack = torch.full((88,), float("nan"))
+    gi = port_odo.icp_step(tt(w["Tg"]), i.vmaps_curr[0], i.nmaps_curr[0], tt(w["Tp"]),
+                           i.vmaps_prev_g[0], i.nmaps_prev_g[0], c.fx, c.fy, c.cx, c.cy,
+                           out=pack[0:44])
+    corres = port_odo.compute_rgb_residual(
+        w["min_grad2"], dIdx, dIdy, i.last_depths[0], i.next_depths[0],
+        i.last_images[0], i.next_images[0], tt(w["kt"]), tt(w["krkinv"]),
+        out=pack[86:88])
+    gr = port_odo.rgb_step(corres, None, tt(w["ref"]["cloud"]), c.fx, c.fy, dIdx, dIdy,
+                           out=pack[44:86])
+    got = nn(pack)
+    assert np.isfinite(got).all()
+    np.testing.assert_array_equal(got[0:36].reshape(6, 6), nn(gi.A))
+    np.testing.assert_array_equal(got[36:42], nn(gi.b))
+    assert got[42] == float(gi.sum_sq) and got[43] == float(gi.count)
+    np.testing.assert_array_equal(got[44:80].reshape(6, 6), nn(gr.A))
+    np.testing.assert_array_equal(got[80:86], nn(gr.b))
+    assert got[86] == float(corres.sigma_sum) and got[87] == float(corres.count)
+    # sigma=None is the reference's sqrt(count) on this frame
+    _assert_gram(gr, w["ref"]["rgb"], 43)
+    # the same calls without `out` return the same numbers
+    plain = port_odo.icp_step_plain(
+        tt(w["Tg"]), i.vmaps_curr[0], i.nmaps_curr[0], tt(w["Tp"]),
+        i.vmaps_prev_g[0], i.nmaps_prev_g[0], c.fx, c.fy, c.cx, c.cy)
+    np.testing.assert_array_equal(nn(plain.A), nn(gi.A))
+
+
+@pytest.mark.parametrize("count,sigma_sum,want", [
+    (0.0, 0.0, 0.0),          # no correspondence at all
+    (0.0, 7.5, 0.0),
+    (1234.0, 0.0, 1.0),       # identical images: sqrt(1)
+    (1234.0, 98.5, np.sqrt(np.float32(1234.0))),   # ordinary: sqrt(count)
+])
+def test_rgb_sigma_val_keeps_the_reference_quirk(count, sigma_sum, want):
+    got = port_odo.rgb_sigma_val(torch.tensor(count), torch.tensor(sigma_sum))
+    assert got.dtype == torch.float32 and float(got) == np.float32(want)
+
+
+def test_icp_step_plain_rejects_a_projection_beyond_every_integer():
+    """A vertex with a tiny positive z projects to ~1e22 pixels, which no
+    integer type holds; it must count as outside the image (the kernel tests
+    the bounds on the float for the same reason), and the sums stay finite."""
+    H, W, f = 6, 8, 10.0
+    cx, cy = (W - 1) / 2, (H - 1) / 2
+    u, v = np.meshgrid(np.arange(W, dtype=np.float32), np.arange(H, dtype=np.float32))
+    vmap = np.stack([(u - cx) / f, (v - cy) / f, np.ones_like(u)]).astype(np.float32)
+    nmap = np.zeros_like(vmap)
+    nmap[2] = -1.0
+    eye = torch.eye(4)
+
+    def step(vm):
+        return port_odo.icp_step_plain(eye, tt(vm), tt(nmap), eye, tt(vmap), tt(nmap),
+                                       f, f, cx, cy)
+
+    assert float(step(vmap).count) == H * W
+    for z in (1e-20, 1e-36):
+        bad = vmap.copy()
+        bad[:, 2, 3] = (1.0, 0.5, z)
+        g = step(bad)
+        assert float(g.count) == H * W - 1
+        assert np.isfinite(nn(g.A)).all() and np.isfinite(nn(g.b)).all()
 
 
 def test_so3_step_11_floats(world):

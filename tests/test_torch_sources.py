@@ -1,0 +1,162 @@
+"""Static checks of the port's sources, and of every kernel wrapper's contract
+that needs no card: the port imports neither JAX nor the JAX package, every
+kernel source and launcher symbol a wrapper asks for exists, every wrapper has
+a plain version and a launch counter, refuses a tensor that is neither on the
+CPU nor on a card, and importing the package builds nothing and starts no
+CUDA context."""
+
+import ast
+import importlib
+import os
+import pkgutil
+import re
+
+import pytest
+import torch
+
+import elasticfusion_tpu_torch
+from elasticfusion_tpu_torch import _build
+from elasticfusion_tpu_torch.ops import fuse_window as fuse_window_mod
+from elasticfusion_tpu_torch.ops import gram as gram_mod
+from elasticfusion_tpu_torch.ops import odometry as odometry_mod
+from elasticfusion_tpu_torch.ops import splat_resolve as splat_resolve_mod
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "elasticfusion_tpu_torch")
+FORBIDDEN = {"jax", "jaxlib", "elasticfusion_tpu"}
+WRAPPER_MODULES = (gram_mod, odometry_mod, splat_resolve_mod, fuse_window_mod)
+
+
+def _python_sources():
+    out = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(PKG):
+        out += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _tree(path):
+    with open(path, encoding="utf-8") as f:
+        return ast.parse(f.read(), filename=path)
+
+
+@pytest.mark.parametrize("path", _python_sources(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_imports_neither_jax_nor_the_jax_package(path):
+    for node in ast.walk(_tree(path)):
+        if isinstance(node, ast.Import):
+            roots = [a.name.split(".")[0] for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots = [(node.module or "").split(".")[0]]
+        else:
+            continue
+        assert not FORBIDDEN & set(roots), f"{path}:{node.lineno} imports {roots}"
+
+
+def _kernel_function_calls(module):
+    """(enclosing function, source name, symbol) of every
+    `kernel_function("<source>", "<symbol>", ...)` call of a wrapper module."""
+    found = []
+    for fn in ast.walk(_tree(module.__file__)):
+        if not isinstance(fn, ast.FunctionDef):
+            continue
+        for node in ast.walk(fn):
+            if (isinstance(node, ast.Call) and isinstance(node.func, ast.Name)
+                    and node.func.id == "kernel_function"):
+                name, symbol = node.args[0], node.args[1]
+                assert isinstance(name, ast.Constant) and isinstance(symbol, ast.Constant)
+                found.append((fn.name, name.value, symbol.value))
+    return found
+
+
+WRAPPERS = [(m, *call) for m in WRAPPER_MODULES for call in _kernel_function_calls(m)]
+
+
+def test_the_port_has_six_kernel_wrappers():
+    assert sorted(w[1] for w in WRAPPERS) == [
+        "compute_rgb_residual", "fuse_window", "gram_outer", "icp_step",
+        "rgb_step", "splat_resolve"]
+
+
+@pytest.mark.parametrize("name", sorted(_build.SOURCES))
+def test_every_kernel_source_and_its_headers_exist(name):
+    files = _build.source_files(name)
+    assert files[0].endswith(os.path.join("csrc", name + ".cu"))
+    assert all(os.path.isfile(f) for f in files)
+
+
+def test_a_header_edit_changes_the_library_name(tmp_path, monkeypatch):
+    """The library is named by a hash over the source AND the headers it
+    includes, so an edited header cannot meet a stale library."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "gram.cu").write_text('#include "inner.cuh"\nint x;\n')
+    (csrc / "inner.cuh").write_text('  #  include "leaf.cuh"\n')
+    (csrc / "leaf.cuh").write_text("// v1\n")
+    monkeypatch.setattr(_build, "_CSRC", str(csrc))
+    assert [os.path.basename(f) for f in _build.source_files("gram")] == [
+        "gram.cu", "inner.cuh", "leaf.cuh"]
+    before = _build._target("gram")
+    (csrc / "leaf.cuh").write_text("// v2\n")
+    assert _build._target("gram") != before
+
+
+@pytest.mark.parametrize("module,function,source,symbol", WRAPPERS,
+                         ids=[w[1] for w in WRAPPERS])
+def test_wrapper_has_source_symbol_plain_version_and_counter(
+        module, function, source, symbol):
+    assert source in _build.SOURCES
+    with open(_build.source_files(source)[0], encoding="utf-8") as f:
+        text = f.read()
+    assert re.search(r'extern\s+"C"\s+int\s+' + re.escape(symbol) + r"\s*\(", text), (
+        f"{symbol} is no extern \"C\" launcher of csrc/{source}.cu")
+    wrapper = getattr(module, function)
+    assert callable(getattr(module, function + "_plain"))
+    assert isinstance(wrapper.launches, int)
+
+
+def _meta(*shape, dtype=torch.float32):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _meta_calls():
+    H, W = 4, 6
+    N = H * W
+    corres = odometry_mod.RgbCorrespondence(
+        u0=None, v0=None, diff=_meta(N), valid=None, count=_meta(),
+        sigma_sum=_meta(), flat0=_meta(N, dtype=torch.int32))
+    return {
+        "gram_outer": lambda: gram_mod.gram_outer(_meta(7, 64)),
+        "splat_resolve": lambda: splat_resolve_mod.splat_resolve(
+            _meta(13, H, W), 5.0, 5.0, 3.0, 2.0),
+        "fuse_window": lambda: fuse_window_mod.fuse_window(
+            _meta(18, H, W), _meta(12), 5.0, 5.0, 3.0, 2.0, 100),
+        "icp_step": lambda: odometry_mod.icp_step(
+            _meta(4, 4), _meta(3, H, W), _meta(3, H, W), _meta(4, 4),
+            _meta(3, H, W), _meta(3, H, W), 5.0, 5.0, 3.0, 2.0),
+        "compute_rgb_residual": lambda: odometry_mod.compute_rgb_residual(
+            1.0, _meta(H, W), _meta(H, W), _meta(H, W), _meta(H, W),
+            _meta(H, W), _meta(H, W), _meta(3), _meta(3, 3),
+            last_table=_meta(2, N), static_gates=_meta(N, dtype=torch.bool)),
+        "rgb_step": lambda: odometry_mod.rgb_step(
+            corres, None, _meta(3, H, W), 5.0, 5.0, _meta(H, W), _meta(H, W)),
+    }
+
+
+@pytest.mark.parametrize("function", [w[1] for w in WRAPPERS])
+def test_wrapper_raises_for_a_tensor_on_neither_cpu_nor_card(function):
+    """Only a CPU tensor gets the plain version; anything else must reach the
+    kernel or raise — here a `meta` tensor, which must raise and launch
+    nothing."""
+    wrapper = next(getattr(m, f) for m, f, _, _ in WRAPPERS if f == function)
+    before = wrapper.launches
+    with pytest.raises(ValueError, match="unsupported device"):
+        _meta_calls()[function]()
+    assert wrapper.launches == before
+
+
+def test_import_builds_nothing_and_starts_no_cuda_context():
+    for info in pkgutil.walk_packages(elasticfusion_tpu_torch.__path__,
+                                      "elasticfusion_tpu_torch."):
+        importlib.import_module(info.name)
+    assert not torch.cuda.is_initialized()
+    assert _build._libs == {} and _build.build_log == ""

@@ -168,3 +168,106 @@ def test_raster_tie_goes_to_lowest_id():
         assert int(nn(got.index)[y, x]) == want
         np.testing.assert_array_equal(nn(got.index), nn(ref.index))
         assert (nn(got.index) == -1).sum() == got.index.numel() - 1
+
+
+def _resolve_in_kernel_order(chan, fx, fy, cx, cy):
+    """csrc/splat_resolve.cu in numpy float32, operation for operation: p.n and
+    rad² once per SOURCE pixel (with `valid` folded into rad² as −1), every
+    candidate's division once (pass 1 keeps depth and hit bit), pass 2 over the
+    hits only with the miss distance recomputed from the kept depth."""
+    f = np.float32
+    C, H, W = chan.shape
+    pad = np.zeros((C, H + 4, W + 4), f)
+    pad[:, 2:-2, 2:-2] = chan
+    pn = pad[0] * pad[3] + pad[1] * pad[4] + pad[2] * pad[5]
+    r2 = np.where(pad[12] > 0, pad[6] * pad[6], f(-1.0)).astype(f)
+    out = np.zeros((13, H, W), f)
+    for y in range(H):
+        for x in range(W):
+            lx, ly = (f(x) - f(cx)) / f(fx), (f(y) - f(cy)) / f(fy)
+            zc, hits, zmin = {}, [], f(3.4e38)
+            for dy in range(5):
+                for dx in range(5):
+                    sy, sx = y + dy, x + dx
+                    if not r2[sy, sx] >= 0:
+                        continue
+                    ln = lx * pad[3, sy, sx] + ly * pad[4, sy, sx] + pad[5, sy, sx]
+                    ln_ok = abs(ln) > f(1e-12)
+                    z = pn[sy, sx] / (ln if ln_ok else f(1.0))
+                    ex, ey, ez = z * lx - pad[0, sy, sx], z * ly - pad[1, sy, sx], z - pad[2, sy, sx]
+                    d2 = ex * ex + ey * ey + ez * ez
+                    if ln_ok and z > 0 and d2 <= r2[sy, sx]:
+                        zc[(dy, dx)] = z
+                        hits.append((dy, dx))
+                        zmin = min(zmin, z)
+            front_z = zmin + f(0.01)
+            wsum = wbest = it_best = f(0.0)
+            acc = [f(0.0)] * 9
+            for dy, dx in hits:
+                z = zc[(dy, dx)]
+                if not z <= front_z:
+                    continue
+                sy, sx = y + dy, x + dx
+                ex, ey, ez = z * lx - pad[0, sy, sx], z * ly - pad[1, sy, sx], z - pad[2, sy, sx]
+                d2 = ex * ex + ey * ey + ez * ez
+                gauss = f(1.0) - d2 / max(r2[sy, sx], f(1e-12))
+                conf = pad[7, sy, sx]
+                w = max(conf, f(1e-3)) * max(gauss, f(0.05))
+                wsum = wsum + w
+                src = (z, conf, pad[3, sy, sx], pad[4, sy, sx], pad[5, sy, sx],
+                       pad[6, sy, sx], pad[8, sy, sx], pad[9, sy, sx], pad[10, sy, sx])
+                acc = [a + w * v for a, v in zip(acc, src)]
+                if w > wbest:
+                    it_best, wbest = pad[11, sy, sx], w
+            found = wsum > 0
+            inv_w = f(1.0) / max(wsum, f(1e-12)) if found else f(0.0)
+            zed = acc[0] * inv_w
+            n = [acc[2] * inv_w, acc[3] * inv_w, acc[4] * inv_w]
+            nlen = np.sqrt(n[0] * n[0] + n[1] * n[1] + n[2] * n[2])
+            ns = f(1.0) / max(nlen, f(1e-12)) if found and nlen > f(1e-12) else f(0.0)
+            out[:, y, x] = [acc[6] * inv_w, acc[7] * inv_w, acc[8] * inv_w,
+                            zed * lx, zed * ly, zed, acc[1] * inv_w,
+                            n[0] * ns, n[1] * ns, n[2] * ns, acc[5] * inv_w,
+                            it_best, zed]
+    return out
+
+
+def test_kernel_order_of_splat_resolve_is_bit_equal_to_plain():
+    """The CUDA kernel hoists, caches and skips where the plain version
+    recomputes all 25 candidates in both passes.  On a constructed 16x12 frame
+    (a tilted back wall, a nearer patch that occludes part of it, disks of
+    2-3 pixels that overlap, holes, a few out-of-reach and zero-radius
+    sources) the kernel's order of operations gives the plain version's bits:
+    a skipped non-hit would have added w = 0, and 0·x adds nothing for finite
+    x."""
+    H, W, fx, fy, cx, cy = 12, 16, 20.0, 21.0, 7.5, 5.5
+    rng = np.random.default_rng(11)
+    u, v = np.meshgrid(np.arange(W, dtype=np.float32), np.arange(H, dtype=np.float32))
+    z = (1.0 + 0.01 * u + 0.004 * v).astype(np.float32)
+    z[3:8, 5:10] = 0.8                                     # the occluder
+    z = (z + rng.uniform(-0.004, 0.004, z.shape)).astype(np.float32)
+    jit = rng.uniform(-0.3, 0.3, (2, H, W)).astype(np.float32)
+    chan = np.zeros((13, H, W), np.float32)
+    chan[0] = (u + jit[0] - cx) / fx * z
+    chan[1] = (v + jit[1] - cy) / fy * z
+    chan[2] = z
+    nrm = np.stack([0.1 * rng.standard_normal((H, W)), 0.1 * rng.standard_normal((H, W)),
+                    -np.ones((H, W))])
+    chan[3:6] = (nrm / np.linalg.norm(nrm, axis=0)).astype(np.float32)
+    chan[6] = rng.uniform(2.0, 3.0, (H, W)) * z / fx       # rad: 2-3 pixels
+    chan[7] = rng.uniform(0.0, 5.0, (H, W))                # conf (some below 1e-3 floor)
+    chan[7][rng.random((H, W)) < 0.1] = 0.0
+    chan[8:11] = rng.uniform(0, 255, (3, H, W))
+    chan[11] = rng.integers(1, 40, (H, W))                 # init time
+    valid = rng.random((H, W)) > 0.2                       # holes
+    chan[12] = valid
+    chan[6][1, 1] = 0.0                                    # a zero-radius source
+    chan[3:6, 10, 2] = (1.0, 0.0, 0.0)                     # a normal across the rays
+    chan = chan.astype(np.float32)
+
+    plain = nn(splat_resolve_plain(tt(chan), fx, fy, cx, cy))
+    got = _resolve_in_kernel_order(chan, fx, fy, cx, cy)
+    covered = plain[12] > 0
+    assert covered.mean() > 0.8 and (covered & ~valid).sum() > 10, "disks must fill holes"
+    assert (plain[12][3:8, 5:10] < 0.9).all(), "the occluder must win its pixels"
+    np.testing.assert_array_equal(got, plain)
