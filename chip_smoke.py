@@ -13,14 +13,18 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
   3. every kernel against its plain PyTorch version on the card, at the shapes
      the main path gives it, then its time, the plain version's time, the
      time of the one library call that computes the same (where there is one)
-     and its bound from bytes and operations.  The six kernels: `gram_outer`,
-     the fused tracking steps `icp_step`, `rgb_residual`, `rgb_step` (at all
-     three pyramid levels, on the tensors of a tracked frame),
-     `splat_resolve`, `fuse_window`;
+     and its bound from bytes and operations.  The seven kernels:
+     `gram_outer` (off the main path since the SO(3) step is fused; held at
+     the two shapes it had), the fused tracking steps `icp_step`,
+     `rgb_residual`, `rgb_step` (at all three pyramid levels, on the tensors
+     of a tracked frame) and `so3_step` (160x120), `splat_resolve`, and
+     `fuse_window` (bit-identical to its plain version under every schedule
+     of its tile walk, each timed);
   4. the main path: `Engine.process_frame` over 6 warm-up + 30 frames of the
-     640x480 synthetic sweep, twice; launch counts, pose error against the
-     known poses, surfel count, coverage, bit-identical repeat, ms/frame,
-     host syncs per frame, peak memory;
+     640x480 synthetic sweep, twice; launch counts (every kernel of the path
+     launched, `gram_outer` not at all), pose error against the known poses,
+     surfel count, coverage, bit-identical repeat, ms/frame, host syncs per
+     frame, peak memory;
   5. one JSON line `{"kernels": [...]}`;
   6. last line `{"ok": true, "device": {...}}`.
 """
@@ -48,6 +52,8 @@ from elasticfusion_tpu_torch.engine import Engine  # noqa: E402
 from elasticfusion_tpu_torch.ops import fuse as fuse_ops  # noqa: E402
 from elasticfusion_tpu_torch.ops import splat as splat_ops  # noqa: E402
 from elasticfusion_tpu_torch.ops.fuse_window import (  # noqa: E402
+    DEFAULT_SCHEDULE,
+    SCHEDULES,
     fuse_window,
     fuse_window_plain,
 )
@@ -59,6 +65,8 @@ from elasticfusion_tpu_torch.ops.odometry import (  # noqa: E402
     icp_step_plain,
     rgb_step,
     rgb_step_plain,
+    so3_step,
+    so3_step_plain,
 )
 from elasticfusion_tpu_torch.ops.splat_resolve import (  # noqa: E402
     splat_resolve,
@@ -145,12 +153,13 @@ def phase_environment() -> str:
     return smi
 
 
-def phase_build() -> None:
+def phase_build() -> dict:
+    """Builds every kernel; returns ptxas's report, entry name -> text."""
     print("== 2. build", flush=True)
     _build.build_all()
     # ptxas -v: "Compiling entry function '<mangled>'", then its properties
     # ("... bytes spill stores, ... bytes spill loads") and "Used N registers"
-    entry, spills, n_kernels = None, "", 0
+    entry, spills, report = None, "", {}
     for line in _build.build_log.splitlines():
         if line.startswith("---") or "error" in line:
             print("  " + line.strip(), flush=True)
@@ -163,14 +172,16 @@ def phase_build() -> None:
         m = re.search(r"Used (\d+) registers", line)
         if m and entry:
             smem = re.search(r"(\d+) bytes smem", line)
-            print(f"    {entry}: {m.group(1)} registers, {spills}, "
-                  f"{smem.group(1) if smem else 0} B static shared", flush=True)
-            entry, n_kernels = None, n_kernels + 1
+            report[entry] = (f"{m.group(1)} registers, {spills}, "
+                             f"{smem.group(1) if smem else 0} B static shared")
+            print(f"    {entry}: {report[entry]}", flush=True)
+            entry = None
     if _build.build_log:
-        check(n_kernels > 0, f"ptxas reported {n_kernels} kernels")
+        check(len(report) > 0, f"ptxas reported {len(report)} kernels")
     else:
         print("  every library was already built: no ptxas report", flush=True)
     print(f"build_seconds {_build.build_seconds:.1f}", flush=True)
+    return report
 
 
 def make_frames(cam: CameraConfig):
@@ -209,6 +220,8 @@ def capture_kernel_inputs(cam, frames):
 
     splat_ops.splat_resolve = recording("splat_resolve", splat_resolve)
     fuse_ops.fuse_window = recording("fuse_window", fuse_window)
+    tracking_mod.so3_step = recording(
+        "so3_step", so3_step, lambda a: a[1].shape[0])
     tracking_mod.icp_step = recording(
         "icp_step", icp_step, lambda a: a[1].shape[1])
     tracking_mod.compute_rgb_residual = recording(
@@ -224,19 +237,22 @@ def capture_kernel_inputs(cam, frames):
     finally:
         splat_ops.splat_resolve = splat_resolve
         fuse_ops.fuse_window = fuse_window
+        tracking_mod.so3_step = so3_step
         tracking_mod.icp_step = icp_step
         tracking_mod.compute_rgb_residual = compute_rgb_residual
         tracking_mod.rgb_step = rgb_step
     return captured
 
 
-def gram_agrees(what, got, plain, n_pixels):
+def gram_agrees(what, got, plain, n_pixels, max_flips=None):
     """A, b and the sum of squares each within 1e-4 of that block's largest
     entry (float32 sums over up to 307200 pixels in another order; the
     tolerance of the CPU tests against the reference), the inlier count within
-    0.01 % of the pixels (a pixel that sits on a gate's threshold may fall on
-    the other side when a 3-term sum is contracted differently).  Returns the
-    worst absolute error and the count difference."""
+    `max_flips` (default 0.01 % of the pixels: a pixel that sits on a gate's
+    threshold may fall on the other side when a 3-term sum is contracted
+    differently).  Returns the worst absolute error and the count difference."""
+    if max_flips is None:
+        max_flips = 1e-4 * n_pixels
     worst = 0.0
     for blk in ("A", "b", "sum_sq"):
         g, p = getattr(got, blk), getattr(plain, blk)
@@ -245,9 +261,9 @@ def gram_agrees(what, got, plain, n_pixels):
               f"{what} {blk}: |err| {err:.3e} <= 1e-4 x {scale:.3e}")
         worst = max(worst, err)
     dc = abs(float(got.count) - float(plain.count))
-    check(dc <= 1e-4 * n_pixels and float(plain.count) >= 100,
+    check(dc <= max_flips and float(plain.count) >= 100,
           f"{what} count {float(got.count):.0f} vs plain {float(plain.count):.0f} "
-          f"(net flips {dc:.0f}, allowed {1e-4 * n_pixels:.0f})")
+          f"(net flips {dc:.0f}, allowed {max_flips:.0f})")
     return worst, dc
 
 
@@ -339,8 +355,35 @@ def phase_tracking_kernels(cam, cap_in, entries):
             replaces="elasticfusion_tpu/ops/gram_pallas.py:24",
             library_ms=None, levels=levels, **levels[full])
 
+    # --- SO(3) step on the arguments of the last pre-alignment iteration ---
+    # tolerance: Gram blocks as above, at most 3 net count flips of 19200 (a
+    # warped pixel within rounding of x.5 may land on the other side when
+    # the 3-term warp is summed in another order than cuBLAS's)
+    H, W = cam.height >> 2, cam.width >> 2
+    tag = f"{W}x{H}"
+    check(("so3_step", H) in cap_in, f"the main path ran so3_step at {tag}")
+    a, kw = cap_in[("so3_step", H)]
+    got, again = so3_step(*a, **kw), so3_step(*a, **kw)
+    plain = so3_step_plain(*a, **kw)
+    torch.cuda.synchronize()
+    err, _ = gram_agrees(f"so3_step {tag}", got, plain, H * W, max_flips=3)
+    check(all(torch.equal(x, y) for x, y in zip(got, again)),
+          f"so3_step {tag} bit-identical on repeat")
+    # the two images read once, the three matrices, the 14 floats written;
+    # ~100 operations for each pixel that passes the gates
+    s_bytes = (2 * H * W + 27 + 14) * F32
+    b_ms, b_by = bound(s_bytes, 100.0 * float(plain.count))
+    entries["so3_step"] = dict(
+        name="so3_step", route="cuda",
+        source="elasticfusion_tpu_torch/csrc/odometry_steps.cu",
+        replaces="elasticfusion_tpu/ops/gram_pallas.py:24",
+        max_abs_err=err, bound_ms=b_ms, bound_by=b_by, bytes=s_bytes,
+        ms=time_ms(lambda: so3_step(*a, **kw), queue_first=True),
+        plain_ms=time_ms(lambda: so3_step_plain(*a, **kw), reps=5, warm=1),
+        library_ms=None)
 
-def phase_kernels(cam, frames):
+
+def phase_kernels(cam, frames, ptxas):
     print("== 3. kernels against their plain versions", flush=True)
     H, W = cam.height, cam.width
     HW = H * W
@@ -370,8 +413,8 @@ def phase_kernels(cam, frames):
                   f"K1 gram_outer K={K} N={N}: |err| vs f64 {e64:.3e}, vs plain "
                   f"{ep:.3e} (scale {scale:.3e}, tolerance 1e-5 relative)")
             check(torch.equal(got, again), f"K1 K={K} N={N} bit-identical on repeat")
-    # timed at the main path's shape (the SO(3) rows, K=4 at 160x120) and, for
-    # comparison across versions, at the shape of a full-resolution step
+    # timed at the shapes it had on the main path before the steps were fused
+    # (the SO(3) rows, K=4 at 160x120; a full-resolution step, K=7)
     def timed(K, N):
         rows = torch.from_numpy(rng.standard_normal((K, N)).astype(np.float32)).to(DEV)
         b_ms, b_by = bound((K * N + K * K) * 4, 2.0 * K * K * N)
@@ -434,8 +477,8 @@ def phase_kernels(cam, frames):
         bytes=26 * HW * 4,
     )
 
-    # K3.  tolerance: association outputs (best_id, best_off, matched) equal
-    # except at most 0.01 % of pixels; contributions rtol 1e-5 + atol 1e-5
+    # K3.  bit-identical to the plain version (every channel of every pixel)
+    # under every schedule of the tile walk; each schedule timed
     chan3, params, fx, fy, cx, cy, cap = cap_in["fuse_window"]
     check(tuple(chan3.shape) == (18, H, W), f"K3 input is [18,{H},{W}]")
     got = fuse_window(chan3, params, fx, fy, cx, cy, cap)
@@ -450,25 +493,42 @@ def phase_kernels(cam, frames):
           f"K3 merges {int(matched.sum())}, appends {n_app}, matches at a "
           f"neighbouring pixel {n_side}")
     check(int((got[5] > 0).sum()) > 10000, "K3 contributions accumulate")
-    assoc_bad = ((got[0] != plain[0]) | (got[1] != plain[1])
-                 | (got[3] != plain[3]))
-    contrib_bad = (~torch.isclose(got[4:], plain[4:], rtol=1e-5, atol=1e-5)).any(dim=0)
+    assoc_bad = int((got[:4] != plain[:4]).any(dim=0).sum())
+    contrib_bad = int((got[4:] != plain[4:]).any(dim=0).sum())
     k3_err = float((got - plain).abs().max())
-    check(int(assoc_bad.sum()) <= HW // 10000 and int(contrib_bad.sum()) <= HW // 10000,
-          f"K3 vs plain: {int(assoc_bad.sum())} associations differ, "
-          f"{int(contrib_bad.sum())} pixels of contributions beyond tolerance, "
+    check(assoc_bad == 0 and contrib_bad == 0,
+          f"K3 vs plain: {assoc_bad} associations (best_id, best_off, best_rad, "
+          f"matched) and {contrib_bad} pixels of contributions differ of {HW}, "
           f"max |err| {k3_err:.3e}")
+    schedules = []
+    for k, desc in enumerate(SCHEDULES):
+        out_k = fuse_window(chan3, params, fx, fy, cx, cy, cap, schedule=k)
+        info = dict(fuse_window.last_launch)
+        torch.cuda.synchronize()
+        check(torch.equal(out_k, plain),
+              f"K3 schedule {k} ({desc}) bit-identical to plain")
+        ms = time_ms(lambda: fuse_window(chan3, params, fx, fy, cx, cy, cap,
+                                         schedule=k), queue_first=True)
+        key = "ILi{tile_w}ELi{tile_h}ELi{threads}ELi{stages}ELi{min_blocks}E".format(
+            **info)
+        regs = [v for e, v in ptxas.items() if "fuse_window_kernel" in e and key in e]
+        schedules.append(dict(schedule=k, desc=desc, ms=ms, ptxas=regs[0] if regs
+                              else "not reported", **info))
+        print(f"  K3 schedule {k} ({desc}): {ms:.4f} ms, grid {info['grid']} "
+              f"blocks ({info['blocks_per_sm']}/SM resident) over "
+              f"{info['tiles']} tiles = {info['tiles'] / info['grid']:.2f} a block, "
+              f"{info['smem_bytes']} B dynamic shared; ptxas: "
+              f"{regs[0] if regs else 'not reported'}", flush=True)
     b_ms, b_by = bound(34 * HW * 4, (9 * 45.0 + 60 + 9 * 13) * HW)
     entries["fuse_window"] = dict(
         name="fuse_window", route="cuda",
         source="elasticfusion_tpu_torch/csrc/fuse_window.cu",
         replaces="elasticfusion_tpu/ops/fuse_pallas.py:49",
-        max_abs_err=k3_err,
-        ms=time_ms(lambda: fuse_window(chan3, params, fx, fy, cx, cy, cap), queue_first=True),
+        max_abs_err=k3_err, ms=schedules[DEFAULT_SCHEDULE]["ms"],
         plain_ms=time_ms(
             lambda: fuse_window_plain(chan3, params, fx, fy, cx, cy, cap), reps=5, warm=1),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        bytes=34 * HW * 4,
+        bytes=34 * HW * 4, schedules=schedules,
     )
     for e in entries.values():
         for tag, lv in e.get("levels", {"": e}).items():
@@ -482,7 +542,10 @@ def phase_kernels(cam, frames):
 
 WRAPPERS = {"gram_outer": gram_outer, "icp_step": icp_step,
             "rgb_residual": compute_rgb_residual, "rgb_step": rgb_step,
-            "splat_resolve": splat_resolve, "fuse_window": fuse_window}
+            "so3_step": so3_step, "splat_resolve": splat_resolve,
+            "fuse_window": fuse_window}
+# kernels that the main path no longer runs (their caller was fused)
+OFF_THE_PATH = {"gram_outer"}
 
 
 def run_sweep(cam, frames):
@@ -532,17 +595,21 @@ def phase_main_path(cam, frames, gt_poses):
     peak = torch.cuda.max_memory_allocated()
     tracked = N_WARM + N_BENCH - 1
     for k, n in launches.items():
-        check(n > 0, f"{k} launched {n} times on the main path "
-                     f"({n / tracked:.1f} per tracked frame)")
+        if k in OFF_THE_PATH:
+            check(n == 0, f"{k} launched {n} times on the main path (off it)")
+        else:
+            check(n > 0, f"{k} launched {n} times on the main path "
+                         f"({n / tracked:.1f} per tracked frame)")
     # one read per iteration and nothing else: every Gauss-Newton iteration is
-    # its three launches and one read, every SO(3) iteration one Gram and one
-    # read, every tracked frame one read of the previous pose
+    # its three launches and one read, every SO(3) iteration one so3_step and
+    # one read, every tracked frame one read of the previous pose
     gn = launches["icp_step"]
     check(launches["rgb_residual"] == gn and launches["rgb_step"] == gn
-          and len(tracker_reads) == tracked + launches["gram_outer"] + gn,
+          and len(tracker_reads) == tracked + launches["so3_step"] + gn,
           f"tracker reads {len(tracker_reads)} = {tracked} poses + "
-          f"{launches['gram_outer']} SO(3) + {gn} Gauss-Newton iterations, each "
-          f"of which launched icp_step, rgb_residual and rgb_step once")
+          f"{launches['so3_step']} SO(3) iterations (one so3_step each) + {gn} "
+          f"Gauss-Newton iterations, each of which launched icp_step, "
+          f"rgb_residual and rgb_step once")
 
     poses = np.stack(run["poses"])
     check(bool(np.isfinite(poses).all()), "all poses finite")
@@ -592,8 +659,14 @@ def phase_profile(cam, frames, steady_ms: float) -> None:
     kernels = [a for a in avgs if a.device_type == DeviceType.CUDA]
     dev_ms = sum(a.self_device_time_total for a in kernels) / 1e3 / 5
     n_launch = sum(a.count for a in kernels) / 5
+    # the device time of the kernels under the span around K3's input cat
+    spans = [e for e in prof.events() if e.name == fuse_ops.WINDOW_INPUTS_SPAN
+             and e.device_type == DeviceType.CPU]
+    cat_ms = sum(e.device_time_total for e in spans) / 1e3 / 5
     print(f"device_busy_ms_per_frame {dev_ms:.2f}", flush=True)
     print(f"device_kernels_per_frame {n_launch:.0f}", flush=True)
+    print(f"fuse_window_input_cat_device_ms_per_frame {cat_ms:.4f} "
+          f"({len(spans)} spans)", flush=True)
     print(f"device_idle_share {1 - dev_ms / steady_ms:.3f} (against the "
           f"{steady_ms:.2f} ms/frame measured without the profiler)", flush=True)
     print(avgs.table(sort_by="self_device_time_total", row_limit=25,
@@ -610,10 +683,10 @@ def main() -> None:
 
     t_start = time.perf_counter()
     smi = phase_environment()
-    phase_build()
+    ptxas = phase_build()
     cam = CameraConfig()
     frames, gt_poses = make_frames(cam)
-    entries = phase_kernels(cam, frames)
+    entries = phase_kernels(cam, frames, ptxas)
     if args.kernels_only:
         print("stopped after phase 3 as asked", flush=True)
         return

@@ -127,6 +127,12 @@ def kernel_function(name: str, symbol: str, argtypes: Sequence):
 
 
 def check_launch(code: int, what: str) -> None:
-    """Raise on a refused launch (the launcher returns cudaGetLastError())."""
-    if code != 0:
+    """Raise on a refused launch: the launcher returns cudaGetLastError(), or
+    a negative code when setting the launch up failed before it (a TMA
+    descriptor the driver refused, an unknown schedule, no resident block)."""
+    if code > 0:
         raise RuntimeError(f"{what}: kernel launch failed with cudaError {code}")
+    if code < 0:
+        raise RuntimeError(f"{what}: launch set-up failed with code {code} "
+                           "(-CUresult of cuTensorMapEncodeTiled, or -1000xx "
+                           "of the launcher)")

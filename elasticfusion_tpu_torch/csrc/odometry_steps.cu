@@ -4,6 +4,7 @@
 //   ef_icp_step      point-to-plane projective ICP   (ops/odometry.py icp_step)
 //   ef_rgb_residual  photometric correspondence      (compute_rgb_residual)
 //   ef_rgb_step      photometric Jacobian rows       (rgb_step)
+//   ef_so3_step      rotation-only Lucas-Kanade      (so3_step)
 //
 // On the tracker's path they replace the Pallas kernel `gram_outer_pallas`
 // (elasticfusion_tpu/ops/gram_pallas.py) together with the chain of
@@ -21,7 +22,8 @@
 //
 // Bound: bytes (ICP reads 6 floats per pixel and gathers 6; the RGB pair
 // reads a gate byte per pixel and 5-7 floats per pixel that passes it) against
-// ~150 flops per pixel.  Built with -fmad=false so that the gates (distance,
+// ~150 flops per pixel.  The SO(3) step runs at 160x120 on two 76.8 KB
+// images: its bound is ~0.05 us, and it sits on one launch's latency by design.  Built with -fmad=false so that the gates (distance,
 // angle, depth difference) see products and sums rounded one by one as in the
 // plain versions; the 3-term dot products that the plain versions leave to a
 // matrix product, and the Gram sums, are written as explicit fmaf chains.
@@ -288,6 +290,86 @@ __global__ void EF_STEP_BOUNDS rgb_step_kernel(
 }
 
 // ---------------------------------------------------------------------------
+// SO(3) step.  out[14] = A(9, 3x3 row-major) b(3) sum_sq count.  Per pixel:
+// warp the pixel by K R K^-1, round half to even, gate on both pixels lying
+// in the interior, read the four neighbours straight from the two images (the
+// gates keep every read inside), and build the row [J | r] of
+// SO3Reduction::getProducts (reduce.cu:820-896) with the plain version's
+// arithmetic: gradients in the reference's (back - fore)/2 form.
+// ---------------------------------------------------------------------------
+
+__global__ void EF_STEP_BOUNDS so3_step_kernel(
+    const float* __restrict__ last_image,  // [H,W] intensity
+    const float* __restrict__ next_image,  // [H,W]
+    const float* __restrict__ basis,       // [3,3] K R K^-1
+    const float* __restrict__ kinv,        // [3,3]
+    const float* __restrict__ krlr,        // [3,3] K R
+    int H, int W, float* __restrict__ partials, unsigned int* ticket,
+    float* __restrict__ out) {
+  constexpr int T = 11;
+  __shared__ float M[27];
+  if (threadIdx.x < 9) M[threadIdx.x] = basis[threadIdx.x];
+  else if (threadIdx.x < 18) M[threadIdx.x] = kinv[threadIdx.x - 9];
+  else if (threadIdx.x < 27) M[threadIdx.x] = krlr[threadIdx.x - 18];
+  __syncthreads();
+  const float* KRL = M + 18;
+
+  float tri[10];
+#pragma unroll
+  for (int t = 0; t < 10; ++t) tri[t] = 0.0f;
+  float count = 0.0f;
+
+  const int N = H * W;
+  for (int i = blockIdx.x * EF_RED_THREADS + threadIdx.x; i < N;
+       i += gridDim.x * EF_RED_THREADS) {
+    const int yi = i / W, xi = i - yi * W;
+    if (!(xi >= 1 && xi < W - 1 && yi >= 1 && yi < H - 1)) continue;
+    const float x = (float)xi, y = (float)yi;
+    const Vec3 ref{x, y, 1.0f};
+    const Vec3 w = mat_vec(M, 3, ref);
+    const float safe_wz = fabsf(w.z) > 1e-12f ? w.z : 1.0f;
+    const float ur = rintf(w.x / safe_wz), vr = rintf(w.y / safe_wz);
+    if (!(ur >= 1.0f && ur < (float)(W - 1) && vr >= 1.0f && vr < (float)(H - 1)))
+      continue;
+    const int f = (int)vr * W + (int)ur;
+
+    const float n_at = next_image[f];
+    const float gnx = (next_image[f - 1] - next_image[f + 1]) * 0.5f;
+    const float gny = (next_image[f - W] - next_image[f + W]) * 0.5f;
+    const float l_at = last_image[i];
+    const float glx = (last_image[i - 1] - last_image[i + 1]) * 0.5f;
+    const float gly = (last_image[i - W] - last_image[i + W]) * 0.5f;
+    const float gx = (gnx + glx) * 0.5f;
+    const float gy = (gny + gly) * 0.5f;
+
+    const Vec3 p = mat_vec(M + 9, 3, ref);
+    const float z2 = p.z * p.z;
+    const Vec3 lp{
+        (p.z * (KRL[3] * gy + KRL[0] * gx) - gy * KRL[6] * y - gx * KRL[6] * x) / z2,
+        (p.z * (KRL[4] * gy + KRL[1] * gx) - gy * KRL[7] * y - gx * KRL[7] * x) / z2,
+        (p.z * (KRL[5] * gy + KRL[2] * gx) - gy * KRL[8] * y - gx * KRL[8] * x) / z2};
+    const Vec3 jac = cross(lp, p);
+    const float row[4] = {jac.x, jac.y, jac.z, -(n_at - l_at)};
+    ef_accumulate_triangle<4>(row, tri);
+    count += 1.0f;
+  }
+
+  float acc[T];
+#pragma unroll
+  for (int t = 0; t < 10; ++t) acc[t] = tri[t];
+  acc[10] = count;
+  if (!ef_reduce_to_last_block<T>(acc, partials, ticket)) return;
+  const float* sums = ef_sum_partials<T>(partials);
+  const int idx = threadIdx.x;
+  if (idx < 9)
+    out[idx] = sums[ef_triangle_index(idx / 3, idx % 3, 4)];
+  else if (idx < 12)
+    out[idx] = sums[ef_triangle_index(idx - 9, 3, 4)];
+  else if (idx < 14)
+    out[idx] = sums[idx - 3];  // sum_sq = entry (3,3), then the count
+}
+
+// ---------------------------------------------------------------------------
 // Launchers.  Every pointer is device memory; `partials` ([n_blocks, T]
 // floats) and `ticket` (one zeroed unsigned) are scratch of ONE launcher.
 // Each returns cudaGetLastError().
@@ -330,5 +412,15 @@ extern "C" int ef_rgb_step(const int* flat0, const float* diff,
   rgb_step_kernel<<<n_blocks, EF_RED_THREADS, 0, (cudaStream_t)stream>>>(
       flat0, diff, stats, sigma, cloud, dIdx, dIdy, N, fx, fy, sobel_scale,
       partials, ticket, out_Ab, sum_sq);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ef_so3_step(const float* last_image, const float* next_image,
+                           const float* basis, const float* kinv,
+                           const float* krlr, int H, int W, float* partials,
+                           unsigned int* ticket, int n_blocks, float* out,
+                           void* stream) {
+  so3_step_kernel<<<n_blocks, EF_RED_THREADS, 0, (cudaStream_t)stream>>>(
+      last_image, next_image, basis, kinv, krlr, H, W, partials, ticket, out);
   return (int)cudaGetLastError();
 }

@@ -39,6 +39,8 @@ from .fuse_window import fuse_window
 from .preprocess import shift2d
 from .splat import IndexPrediction
 
+WINDOW_INPUTS_SPAN = "fuse.window_inputs_cat"
+
 # clean()'s 3x3 window weights — the pixel-aliasing multiplicity of the
 # original's 16-sample loop
 _W3 = (1.0, 2.0, 1.0)
@@ -119,14 +121,17 @@ def fuse(
     # when w lies in q's 3x3 window, so all of its contributions live in the
     # 3x3 neighbourhood of w: they are accumulated as pixel-domain images and
     # fetched per surfel with one gather.
-    chan = torch.cat([
+    planes = [
         (pred.index + 1).to(torch.float32)[None],
         pred.vert, pred.normal, pred.radius[None],
         z[None], n_local,
         measuring.to(torch.float32)[None],
         conf_new[None], rad_new[None],
         rgbf.permute(2, 0, 1),
-    ]).contiguous()
+    ]
+    # named for the profiler: the device time of this copy is K3's input cost
+    with torch.profiler.record_function(WINDOW_INPUTS_SPAN):
+        chan = torch.cat(planes)
     params = torch.cat([R.reshape(-1), t]).to(torch.float32).contiguous()
     outk = fuse_window(chan, params, cam.fx, cam.fy, cam.cx, cam.cy, cap)
     matched = outk[3] > 0.0

@@ -10,16 +10,15 @@ Gram matrix G = rows·rowsᵀ.  G holds the 6×6 normal matrix A = G[:6,:6], the
 rhs b = G[:6,6] and Σr² = G[6,6] — the 29 floats of the original two-stage
 tree reduction.
 
-`icp_step`, `compute_rgb_residual` and `rgb_step` are kernel wrappers: for
-CUDA tensors each is ONE launch of a hand-written kernel of
+`icp_step`, `compute_rgb_residual`, `rgb_step` and `so3_step` are kernel
+wrappers: for CUDA tensors each is ONE launch of a hand-written kernel of
 `csrc/odometry_steps.cu` that builds the row in registers and reduces it in
 the same kernel (the design of reduce.cu), so no per-pixel intermediate
 reaches device memory; on the tracker's path they replace the Pallas kernel
-`gram_outer_pallas` (elasticfusion_tpu/ops/gram_pallas.py:24) and the
+`gram_outer_pallas` (elasticfusion_tpu/ops/gram_pallas.py:36) and the
 elementwise chain that fed it.  For CPU tensors they run the plain versions
-`icp_step_plain`, `compute_rgb_residual_plain`, `rgb_step_plain`, which write
-the rows out and reduce them with `gram_outer`.  `so3_step` still does that
-on either device.
+`icp_step_plain`, `compute_rgb_residual_plain`, `rgb_step_plain`,
+`so3_step_plain`, which write the rows out and reduce them with `gram_outer`.
 """
 
 from __future__ import annotations
@@ -49,6 +48,9 @@ _RGB_RESIDUAL_ARGTYPES = (_P, _P, _P, _P, _P, _P, _I, _I, _F,
 # partials, ticket, n_blocks, out_Ab, sum_sq, stream
 _RGB_STEP_ARGTYPES = (_P, _P, _P, _P, _P, _P, _P, _I, _F, _F, _F,
                       _P, _P, _I, _P, _P, _P)
+# last_image, next_image, basis, kinv, krlr, H, W, partials, ticket, n_blocks,
+# out, stream
+_SO3_STEP_ARGTYPES = (_P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _P, _P)
 
 
 class Gram(NamedTuple):
@@ -545,7 +547,7 @@ def so3_neighborhood_table(img: torch.Tensor) -> torch.Tensor:
     ).reshape(5, -1)
 
 
-def so3_step(
+def so3_step_plain(
     last_image: torch.Tensor,   # (H,W) float intensity
     next_image: torch.Tensor,
     image_basis: torch.Tensor,  # (3,3) K R K⁻¹
@@ -555,7 +557,9 @@ def so3_step(
 ) -> GramSO3:
     """Whole-image rotation-only Lucas-Kanade step, mirroring
     SO3Reduction::getProducts (reduce.cu:820-896).  Gradients are central
-    differences in the original's (back−fore)/2 form — the NEGATIVE of d/dx."""
+    differences in the original's (back−fore)/2 form — the NEGATIVE of d/dx.
+    `tables` are the two images' `so3_neighborhood_table`s (built here when
+    not given)."""
     H, W = next_image.shape
     x, y = _flat_xy(H, W, next_image.device)
 
@@ -611,6 +615,49 @@ def so3_step(
     G = gram_outer(rows.contiguous())
     return GramSO3(A=G[:3, :3], b=G[:3, 3], sum_sq=G[3, 3],
                    count=found.to(torch.float32).sum())
+
+
+def so3_step(
+    last_image: torch.Tensor, next_image: torch.Tensor,
+    image_basis: torch.Tensor, kinv: torch.Tensor, krlr: torch.Tensor,
+    tables: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    out: Optional[torch.Tensor] = None,
+) -> GramSO3:
+    """`so3_step_plain` for CPU tensors; for CUDA tensors one launch of
+    `ef_so3_step`, which reads each pixel's four neighbours straight from the
+    two images (so `tables` is not used there).  `out`, when given, is a
+    float32 `[14]` slice that receives A (9, row-major), b (3), Σr², count —
+    the returned GramSO3 then views it."""
+    if next_image.device.type == "cpu":
+        g = so3_step_plain(last_image, next_image, image_basis, kinv, krlr, tables)
+        if out is not None:
+            out[0:9] = g.A.reshape(-1)
+            out[9:12] = g.b
+            out[12] = g.sum_sq
+            out[13] = g.count
+        return g
+    dev = _cuda_device("so3_step", next_image, last_image=last_image,
+                       next_image=next_image, image_basis=image_basis,
+                       kinv=kinv, krlr=krlr)
+    H, W = next_image.shape
+    if (last_image.shape != (H, W) or image_basis.shape != (3, 3)
+            or kinv.shape != (3, 3) or krlr.shape != (3, 3)):
+        raise ValueError("so3_step: wants two (H,W) images and (3,3) matrices")
+    out = _out_buffer("so3_step", out, 14, dev)
+    partials, ticket = reduction_scratch("so3_step", dev, 11)
+    fn = kernel_function("odometry_steps", "ef_so3_step", _SO3_STEP_ARGTYPES)
+    with torch.cuda.device(dev):
+        code = fn(last_image.data_ptr(), next_image.data_ptr(),
+                  image_basis.data_ptr(), kinv.data_ptr(), krlr.data_ptr(), H, W,
+                  partials.data_ptr(), ticket.data_ptr(),
+                  reduction_grid(H * W, _PIXELS_PER_THREAD), out.data_ptr(),
+                  torch.cuda.current_stream().cuda_stream)
+    check_launch(code, "so3_step")
+    so3_step.launches += 1
+    return GramSO3(A=out[0:9].view(3, 3), b=out[9:12], sum_sq=out[12], count=out[13])
+
+
+so3_step.launches = 0
 
 
 def project_to_point_cloud(

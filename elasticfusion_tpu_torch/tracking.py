@@ -10,10 +10,11 @@ launches (`compute_rgb_residual`, `rgb_step`, `icp_step`, each of which builds
 its rows in registers and writes its normal equations straight into its slice
 of one 88-float pack buffer) and ONE read of that buffer
 (`_device.read_back`); the 6×6 solve, the pose update and the exit tests then
-run on the host in float32 with the reference's arithmetic.  The SO(3)
-pre-alignment still writes its `[4,N]` rows and reduces them with `gram_outer`.
-So a frame costs at most `so3_iterations + sum(gn_iterations) + 1` reads here
-(10 + 19 + 1 by default).
+run on the host in float32 with the reference's arithmetic.  An SO(3)
+pre-alignment iteration is likewise one upload (K·R·K⁻¹, K·R), ONE launch
+(`so3_step`, which writes A, b, Σr², count into a 14-float pack buffer) and
+one read.  So a frame costs at most `so3_iterations + sum(gn_iterations) + 1`
+reads here (10 + 19 + 1 by default).
 
 Layout of the pack buffer: `[0:36]` ICP A, `[36:42]` ICP b, `[42]` ICP Σr²,
 `[43]` ICP count, `[44:80]` RGB A, `[80:86]` RGB b, `[86]` Σdiff², `[87]` RGB
@@ -37,7 +38,6 @@ from .ops.odometry import (
     rgb_last_table,
     rgb_static_gates,
     rgb_step,
-    so3_neighborhood_table,
     so3_step,
     solve_3x3,
     solve_6x6,
@@ -125,7 +125,9 @@ def _so3_prealign(cam: CameraConfig, last_img: torch.Tensor,
     K, Kinv = _K_mats(cam, 2)
     (Kinv_d,) = _upload(dev, Kinv)
     big = _F32(3.4e38 / 2)
-    tables = (so3_neighborhood_table(next_img), so3_neighborhood_table(last_img))
+    # A(9) | b(3) | Σr² | count, overwritten by every iteration's step; the
+    # read at the end of an iteration orders the reuse
+    pack = torch.zeros((14,), dtype=torch.float32, device=dev)
 
     resultR = torch.eye(3, dtype=torch.float32)
     lastResultR = resultR
@@ -133,9 +135,8 @@ def _so3_prealign(cam: CameraConfig, last_img: torch.Tensor,
     so3e, so3c = _F32(0.0), _F32(0.0)
     for _ in range(iters):
         basis_d, krlr_d = _upload(dev, K @ resultR @ Kinv, K @ resultR)
-        G = so3_step(last_img, next_img, basis_d, Kinv_d, krlr_d, tables=tables)
-        got = read_back(torch.cat(
-            [G.A.reshape(-1), G.b, G.sum_sq[None], G.count[None]]))
+        so3_step(last_img, next_img, basis_d, Kinv_d, krlr_d, out=pack)
+        got = read_back(pack)
         A, b = got[0:9].reshape(3, 3), got[9:12]
         sum_sq, g_count = got[12], got[13]
         count = max(g_count, _F32(1.0))

@@ -204,3 +204,67 @@ def test_clean_raises_for_the_unported_fixed_point_patch(scene, port_run):
     with pytest.raises(NotImplementedError):
         port_fuse.clean(m2, upd, tt(scene["T"]), TICK, scene["port_cam"], 0.5, 200,
                         20.0, 20, fx16_patch=True)
+
+
+def _kernel_constant(name):
+    """A `#define` of csrc/fuse_window.cu (a float literal, or a product of
+    literals and other such defines) as the float32 the kernel computes,
+    multiplied left to right."""
+    import os
+    import re
+    src = os.path.join(os.path.dirname(port_fuse.__file__), "..", "csrc",
+                       "fuse_window.cu")
+    with open(src, encoding="utf-8") as f:
+        defines = dict(re.findall(r"#define (EF_\w+) ([^/\n]+)", f.read()))
+    value = None
+    for term in defines[name].strip().strip("()").split("*"):
+        term = term.strip()
+        x = (_kernel_constant(term) if term in defines
+             else np.float32(float(term.rstrip("f"))))
+        value = x if value is None else np.float32(value * x)
+    return value
+
+
+def test_k3_squared_sum_shortcuts_decide_as_the_plain_divisions():
+    """K3 settles `sqrt(sq)/lam < sqrt(best_sq)/lam` (or < 1000) and the
+    normal test `nn / max(sqrt(ncn)*sqrt(nl_sq), 1e-12) > cos(0.5)` on
+    squared sums with margins; emulated in float32 (every operation rounded
+    as on the card, no FMA), the shortcuts never disagree with the plain
+    version's roundings — also for sums within a few ulps of a tie."""
+    f32 = np.float32
+    shrink = _kernel_constant("EF_SQ_SHRINK")
+    cos = _kernel_constant("EF_COS_HALF")
+    hi, lo = _kernel_constant("EF_COS2_HI"), _kernel_constant("EF_COS2_LO")
+    rng = np.random.default_rng(11)
+    n = 200_000
+    lam = (1 + rng.random(n)).astype(f32)
+    best = (10.0 ** rng.uniform(-36, 7, n)).astype(f32)
+    # sums from far below the best one's to a few ulps under it
+    k = rng.integers(1, 4000, n)
+    sq = np.where(rng.random(n) < 0.5, best * f32(1 - 2.0 ** -24) ** k,
+                  best * rng.random(n).astype(f32)).astype(f32)
+    sq = np.minimum(sq, np.nextafter(best, f32(0)))
+    with np.errstate(over="ignore", under="ignore", invalid="ignore"):
+        exact = (np.sqrt(sq) / lam) < (np.sqrt(best) / lam)
+        fast = (best >= f32(1e-30)) & (sq < best * shrink)
+        assert not (fast & ~exact).any()
+        far = lam * lam * f32(1e6) * f32(0.999)
+        none_yet = (sq < far) & ~((np.sqrt(sq) / lam) < f32(1000))
+        assert not none_yet.any()
+
+        ncn = (10.0 ** rng.uniform(-12, 6, n)).astype(f32)
+        nl_sq = (10.0 ** rng.uniform(-12, 6, n)).astype(f32)
+        denom = np.maximum(np.sqrt(ncn) * np.sqrt(nl_sq), f32(1e-12))
+        # quotients from far off the threshold to a few ulps around it
+        q = np.where(rng.random(n) < 0.5,
+                     float(cos) * (1 + rng.integers(-3000, 3000, n) * 2.0 ** -24),
+                     rng.uniform(-2, 2, n)).astype(f32)
+        nn = (q * denom).astype(f32)
+        plain = nn / denom > cos
+        p, nn2 = ncn * nl_sq, nn * nn
+        settled = (nn > 0) & (p >= f32(1e-20)) & (p <= f32(1e30)) & (nn2 <= f32(1e30))
+        says_yes = settled & (nn2 > hi * p)
+        says_no = (~(nn > 0)) | (settled & (nn2 < lo * p))
+    assert not (says_yes & ~plain).any() and not (says_no & plain).any()
+    # the shortcuts decide most cases (else they would save nothing)
+    assert fast.mean() > 0.4 and (says_yes | says_no).mean() > 0.9

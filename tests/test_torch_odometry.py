@@ -1,6 +1,6 @@
 """ops/odometry and tracking parity on the CPU: every step's normal-equation
 floats (A 6x6, b 6, Σr², count — the 29 + 1 of ICP and RGB, the 11 + 1 of
-SO(3)), the small solves, and a whole tracking solve against the reference,
+SO(3)) and the pack layouts the tracker reads, the small solves, and a whole tracking solve against the reference,
 all on one pair of rendered 160x120 frames.  The reference side is one jitted
 function for the steps and the reference's own jitted tracker."""
 
@@ -214,6 +214,26 @@ def test_so3_step_11_floats(world):
     got = port_odo.so3_step(i.last_images[2], i.next_images[2], tt(w["basis"]),
                             tt(w["K2inv"]), tt(w["krlr"]))
     _assert_gram(got, w["ref"]["so3"], 13)
+
+
+def test_so3_step_fills_the_pack_in_the_tracker_s_layout(world):
+    """`out=` a 14-float buffer, as `tracking._so3_prealign` passes it:
+    A (row-major 3x3) | b | Σr² | count at 0|9|12|13, the same numbers the
+    call returns, and still the reference's step."""
+    w, i = world, world["inputs"]
+    args = (i.last_images[2], i.next_images[2], tt(w["basis"]), tt(w["K2inv"]),
+            tt(w["krlr"]))
+    pack = torch.full((14,), float("nan"))
+    g = port_odo.so3_step(*args, out=pack)
+    got = nn(pack)
+    assert np.isfinite(got).all()
+    np.testing.assert_array_equal(got[0:9].reshape(3, 3), nn(g.A))
+    np.testing.assert_array_equal(got[9:12], nn(g.b))
+    assert got[12] == float(g.sum_sq) and got[13] == float(g.count)
+    plain = port_odo.so3_step_plain(*args)
+    for x, y in zip(g, plain):
+        np.testing.assert_array_equal(nn(x), nn(y))
+    _assert_gram(g, w["ref"]["so3"], 13)
 
 
 def test_small_solves_match_reference(world):

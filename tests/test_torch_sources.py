@@ -71,10 +71,10 @@ def _kernel_function_calls(module):
 WRAPPERS = [(m, *call) for m in WRAPPER_MODULES for call in _kernel_function_calls(m)]
 
 
-def test_the_port_has_six_kernel_wrappers():
+def test_the_port_has_seven_kernel_wrappers():
     assert sorted(w[1] for w in WRAPPERS) == [
         "compute_rgb_residual", "fuse_window", "gram_outer", "icp_step",
-        "rgb_step", "splat_resolve"]
+        "rgb_step", "so3_step", "splat_resolve"]
 
 
 @pytest.mark.parametrize("name", sorted(_build.SOURCES))
@@ -139,6 +139,8 @@ def _meta_calls():
             last_table=_meta(2, N), static_gates=_meta(N, dtype=torch.bool)),
         "rgb_step": lambda: odometry_mod.rgb_step(
             corres, None, _meta(3, H, W), 5.0, 5.0, _meta(H, W), _meta(H, W)),
+        "so3_step": lambda: odometry_mod.so3_step(
+            _meta(H, W), _meta(H, W), _meta(3, 3), _meta(3, 3), _meta(3, 3)),
     }
 
 
@@ -160,3 +162,34 @@ def test_import_builds_nothing_and_starts_no_cuda_context():
         importlib.import_module(info.name)
     assert not torch.cuda.is_initialized()
     assert _build._libs == {} and _build.build_log == ""
+
+
+def test_k3_schedules_keep_both_loops_of_a_tile_at_least_half_busy():
+    """Every schedule of `ef_fuse_window` (tile shape and threads, in the
+    order of its switch) keeps the last pass of step 1 (tile + 1-ring) and of
+    step 3 (tile) at least half busy, and its TMA boxes fit the hardware's
+    limits: starts and rows on 16 bytes, at most 256 elements a dimension,
+    and its stages fit the SM's shared memory as many times as it asks."""
+    with open(os.path.join(PKG, "csrc", "fuse_window.cu"), encoding="utf-8") as f:
+        text = f.read()
+    launched = re.findall(r"launch<(\d+), (\d+), (\d+), (\d+), (\d+)>", text)
+    assert len(launched) == len(fuse_window_mod.SCHEDULES)
+    for dims, desc in zip(launched, fuse_window_mod.SCHEDULES):
+        tw, th, nt, stages, per_sm = map(int, dims)
+        assert desc.startswith(f"{tw}x{th} tiles, {nt} threads, {stages} stage")
+        assert desc.endswith(f"{per_sm} block/SM" if per_sm == 1 else f"{per_sm} blocks/SM")
+        for items in ((tw + 2) * (th + 2), tw * th):
+            assert items % nt == 0 or items % nt >= nt // 2, (desc, items)
+        # both boxes start 4 columns left of the tile: a TMA box must start
+        # on 16 bytes, so the tile's own columns must too
+        assert tw % 4 == 0, desc
+        box_a = (tw + 8, th + 4, 8)
+        box_b = (tw + 8, th + 2, 10)
+        for box in (box_a, box_b):
+            assert box[0] * 4 % 16 == 0 and max(box) <= 256
+        # stages of both boxes (each on 128 bytes) plus the 13-channel ring,
+        # and 128 bytes of slack for aligning the base
+        stage = sum(-(-(bw * bh * bc) // 32) * 32 for bw, bh, bc in (box_a, box_b))
+        smem = 4 * (stages * stage + 13 * (tw + 2) * (th + 2)) + 128
+        assert per_sm * (smem + 1024) <= 228 * 1024, (desc, smem)
+
