@@ -18,8 +18,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      the two shapes it had), the fused tracking steps `icp_step`,
      `rgb_residual`, `rgb_step` (at all three pyramid levels, on the tensors
      of a tracked frame) and `so3_step` (160x120), `splat_resolve`, and
-     `fuse_window` (bit-identical to its plain version under every schedule
-     of its tile walk, each timed);
+     `fuse_window` (bit-identical to its plain version on the frame, on a
+     crop read in place and on a contiguous crop of odd width);
   4. the main path: `Engine.process_frame` over 6 warm-up + 30 frames of the
      640x480 synthetic sweep, twice; launch counts (every kernel of the path
      launched, `gram_outer` not at all), pose error against the known poses,
@@ -52,10 +52,9 @@ from elasticfusion_tpu_torch.engine import Engine  # noqa: E402
 from elasticfusion_tpu_torch.ops import fuse as fuse_ops  # noqa: E402
 from elasticfusion_tpu_torch.ops import splat as splat_ops  # noqa: E402
 from elasticfusion_tpu_torch.ops.fuse_window import (  # noqa: E402
-    DEFAULT_SCHEDULE,
-    SCHEDULES,
     fuse_window,
     fuse_window_plain,
+    tma_layout,
 )
 from elasticfusion_tpu_torch.ops.gram import gram_outer, gram_outer_plain  # noqa: E402
 from elasticfusion_tpu_torch.ops.odometry import (  # noqa: E402
@@ -478,7 +477,6 @@ def phase_kernels(cam, frames, ptxas):
     )
 
     # K3.  bit-identical to the plain version (every channel of every pixel)
-    # under every schedule of the tile walk; each schedule timed
     chan3, params, fx, fy, cx, cy, cap = cap_in["fuse_window"]
     check(tuple(chan3.shape) == (18, H, W), f"K3 input is [18,{H},{W}]")
     got = fuse_window(chan3, params, fx, fy, cx, cy, cap)
@@ -500,35 +498,36 @@ def phase_kernels(cam, frames, ptxas):
           f"K3 vs plain: {assoc_bad} associations (best_id, best_off, best_rad, "
           f"matched) and {contrib_bad} pixels of contributions differ of {HW}, "
           f"max |err| {k3_err:.3e}")
-    schedules = []
-    for k, desc in enumerate(SCHEDULES):
-        out_k = fuse_window(chan3, params, fx, fy, cx, cy, cap, schedule=k)
-        info = dict(fuse_window.last_launch)
+    # any width: a crop read in place (row pitch W) and a contiguous crop of
+    # odd width (102 floats a row, padded for the TMA loads by the wrapper)
+    crop = chan3[:, 205:275, 268:370]
+    check(tma_layout(crop) is crop
+          and tma_layout(crop.contiguous()).stride(1) == 104,
+          "the crop is read in place, its contiguous copy padded to 104 floats")
+    for what, c in (("crop 102x70 in place", crop),
+                    ("crop 102x70 contiguous", crop.contiguous())):
+        got_c = fuse_window(c, params, fx, fy, cx, cy, cap)
+        plain_c = fuse_window_plain(c.contiguous(), params, fx, fy, cx, cy, cap)
         torch.cuda.synchronize()
-        check(torch.equal(out_k, plain),
-              f"K3 schedule {k} ({desc}) bit-identical to plain")
-        ms = time_ms(lambda: fuse_window(chan3, params, fx, fy, cx, cy, cap,
-                                         schedule=k), queue_first=True)
-        key = "ILi{tile_w}ELi{tile_h}ELi{threads}ELi{stages}ELi{min_blocks}E".format(
-            **info)
-        regs = [v for e, v in ptxas.items() if "fuse_window_kernel" in e and key in e]
-        schedules.append(dict(schedule=k, desc=desc, ms=ms, ptxas=regs[0] if regs
-                              else "not reported", **info))
-        print(f"  K3 schedule {k} ({desc}): {ms:.4f} ms, grid {info['grid']} "
-              f"blocks ({info['blocks_per_sm']}/SM resident) over "
-              f"{info['tiles']} tiles = {info['tiles'] / info['grid']:.2f} a block, "
-              f"{info['smem_bytes']} B dynamic shared; ptxas: "
-              f"{regs[0] if regs else 'not reported'}", flush=True)
+        check(torch.equal(got_c, plain_c) and int((plain_c[3] > 0).sum()) > 0,
+              f"K3 on a {what} bit-identical to plain "
+              f"({int((plain_c[3] > 0).sum())} matched)")
+    regs = [v for e, v in ptxas.items() if "fuse_window_kernel" in e]
+    check(len(regs) <= 1 and (regs or not ptxas), "K3 is one kernel")
+    k3_ptxas = regs[0] if regs else "not reported (already built)"
+    print(f"  K3 ptxas: {k3_ptxas}", flush=True)
     b_ms, b_by = bound(34 * HW * 4, (9 * 45.0 + 60 + 9 * 13) * HW)
     entries["fuse_window"] = dict(
         name="fuse_window", route="cuda",
         source="elasticfusion_tpu_torch/csrc/fuse_window.cu",
         replaces="elasticfusion_tpu/ops/fuse_pallas.py:49",
-        max_abs_err=k3_err, ms=schedules[DEFAULT_SCHEDULE]["ms"],
+        max_abs_err=k3_err,
+        ms=time_ms(lambda: fuse_window(chan3, params, fx, fy, cx, cy, cap),
+                   queue_first=True),
         plain_ms=time_ms(
             lambda: fuse_window_plain(chan3, params, fx, fy, cx, cy, cap), reps=5, warm=1),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        bytes=34 * HW * 4, schedules=schedules,
+        bytes=34 * HW * 4, ptxas=k3_ptxas,
     )
     for e in entries.values():
         for tag, lv in e.get("levels", {"": e}).items():

@@ -129,7 +129,7 @@ def kernel_function(name: str, symbol: str, argtypes: Sequence):
 def check_launch(code: int, what: str) -> None:
     """Raise on a refused launch: the launcher returns cudaGetLastError(), or
     a negative code when setting the launch up failed before it (a TMA
-    descriptor the driver refused, an unknown schedule, no resident block)."""
+    descriptor the driver refused, no resident block)."""
     if code > 0:
         raise RuntimeError(f"{what}: kernel launch failed with cudaError {code}")
     if code < 0:

@@ -9,7 +9,7 @@
 // Design (Hopper): a persistent grid, as many blocks as fit on the card, each
 // walking image tiles t = blockIdx.x, blockIdx.x + gridDim.x, ...  A tile's
 // inputs arrive in shared memory by TMA, two boxes of one 3-D tensor map each
-// ([18,H,W] f32, row pitch W*4 bytes):
+// ([18,H,W] f32; row and plane pitch given, each a multiple of 16 bytes):
 //   box A  the 8 candidate channels (index+1, vert, normal, radius) of the
 //          tile plus a 2-pixel halo;
 //   box B  the 10 measurement channels (z, normal, measuring, conf_new,
@@ -40,8 +40,9 @@
 // decision is the plain version's and every value it writes is computed by
 // the same operations, so the output is bit-identical to `fuse_window_plain`.
 // Surfel ids travel as exact floats (capacity < 2^24).
-// The schedule (tile shape, threads, stages, blocks per SM) is a template;
-// `ef_fuse_window` picks one by number.
+// The schedule is fixed: 36x11 tiles, 512 threads, 2 TMA stages, 2 blocks per
+// SM (at 640x480, 792 tiles = exactly 3 per block of the 264 resident); it
+// was the fastest of eleven measured on an H100 (PERF.md, K3 schedules).
 //
 // Input channels [18,H,W]: index+1, pred vert(3), pred normal(3), pred radius,
 //   raw depth z, measurement normal(3), measuring, conf_new, rad_new, rgb(3).
@@ -49,8 +50,9 @@
 //   a, a_full, a_full*v_g(3), a_full*rgb(3), a_full*n_g(3), a_full*rad_new.
 //
 // Built with -fmad=false so the gate comparisons round exactly as in the
-// plain PyTorch version.  Needs W % 4 == 0 and a 16-byte aligned `chan` (the
-// TMA row pitch and base); the wrapper checks both.
+// plain PyTorch version.  Needs a 16-byte aligned `chan` whose row and plane
+// pitches are multiples of 4 floats (the TMA base and strides); the wrapper
+// pads any other layout into such a buffer, so any W runs.
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: no libcuda link)
 #include <cuda_runtime.h>
@@ -65,9 +67,11 @@
 #define EF_COS2_HI (EF_COS_HALF * EF_COS_HALF * 1.0000152587890625f)  // (1 + 2^-16)
 #define EF_COS2_LO (EF_COS_HALF * EF_COS_HALF * 0.9999847412109375f)  // (1 - 2^-16)
 
-template <int TW, int TH>
 struct FuseTile {
-  static_assert(TW % 4 == 0, "TMA boxes start on 16 bytes: TW % 4 == 0");
+  static constexpr int TW = 36, TH = 11;  // tile
+  static constexpr int NT = 512;          // threads per block
+  static constexpr int STAGES = 2;        // tiles whose loads are in flight
+  static constexpr int MINB = 2;          // blocks per SM asked of ptxas
   static constexpr int EW = TW + 2, EH = TH + 2;  // tile + 1-ring
   static constexpr int SW = TW + 4, SH = TH + 4;  // tile + 2-halo
   // both boxes start at column x0 - 4; halo column 0 is box column CX / MX
@@ -80,7 +84,24 @@ struct FuseTile {
   static constexpr int STAGE = CAND_PAD + (MEAS + 31) / 32 * 32;
   static constexpr int RING = EF_NEXT * EH * EW;
   static constexpr unsigned TX_BYTES = (CAND + MEAS) * 4u;
+  // dynamic shared memory: the stages, the ring, 128 B to align the base
+  static constexpr int SMEM_BYTES = (STAGES * STAGE + RING) * 4 + 128;
 };
+
+// A loop of `items` over `nt` threads whose last pass keeps >= nt/2 busy.
+constexpr bool last_pass_half_busy(int items, int nt) {
+  return items % nt == 0 || items % nt >= nt / 2;
+}
+
+static_assert(FuseTile::TW % 4 == 0, "TMA boxes start on 16 bytes: TW % 4 == 0");
+static_assert(FuseTile::CW <= 256 && FuseTile::SH <= 256 && FuseTile::EH <= 256,
+              "a TMA box dimension holds at most 256 elements");
+static_assert(last_pass_half_busy(FuseTile::EH * FuseTile::EW, FuseTile::NT),
+              "step 1's last pass must keep at least half the block busy");
+static_assert(last_pass_half_busy(FuseTile::TW * FuseTile::TH, FuseTile::NT),
+              "step 3's last pass must keep at least half the block busy");
+static_assert(FuseTile::MINB * (FuseTile::SMEM_BYTES + 1024) <= 228 * 1024,
+              "MINB blocks (each with 1 KB reserved) fit an SM's shared memory");
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -163,27 +184,26 @@ __device__ __forceinline__ bool normals_agree(float nn, float ncn,
   return nn / fmaxf(sqrtf(ncn) * sqrtf(nl_sq), 1e-12f) > EF_COS_HALF;
 }
 
-template <int TW, int TH>
 __device__ __forceinline__ void load_tile(float* stage, uint64_t* bar,
                                           const CUtensorMap* map_cand,
                                           const CUtensorMap* map_meas, int t,
                                           int tiles_x) {
-  using G = FuseTile<TW, TH>;
+  using G = FuseTile;
   const int ty = t / tiles_x, tx = t - ty * tiles_x;
   mbar_expect_tx(bar, G::TX_BYTES);
-  tma_load_3d(stage, map_cand, bar, tx * TW - 4, ty * TH - 2, 0);
-  tma_load_3d(stage + G::CAND_PAD, map_meas, bar, tx * TW - 4, ty * TH - 1,
-              EF_NCAND);
+  tma_load_3d(stage, map_cand, bar, tx * G::TW - 4, ty * G::TH - 2, 0);
+  tma_load_3d(stage + G::CAND_PAD, map_meas, bar, tx * G::TW - 4,
+              ty * G::TH - 1, EF_NCAND);
 }
 
-template <int TW, int TH, int NT, int STAGES, int MINB>
-__global__ void __launch_bounds__(NT, MINB)
+__global__ void __launch_bounds__(FuseTile::NT, FuseTile::MINB)
 fuse_window_kernel(const __grid_constant__ CUtensorMap map_cand,
                    const __grid_constant__ CUtensorMap map_meas,
                    const float* __restrict__ par, float* __restrict__ out,
                    int H, int W, int tiles_x, int n_tiles, float fx, float fy,
                    float cx, float cy, float cap) {
-  using G = FuseTile<TW, TH>;
+  using G = FuseTile;
+  constexpr int TW = G::TW, TH = G::TH, NT = G::NT, STAGES = G::STAGES;
   extern __shared__ float smem_raw[];
   __shared__ __align__(8) uint64_t full[STAGES];
   // stages [STAGES][box A | box B], then the ring buffer [13][EH][EW]
@@ -201,7 +221,7 @@ fuse_window_kernel(const __grid_constant__ CUtensorMap map_cand,
     for (int s = 0; s < STAGES; ++s) {
       const int t = blockIdx.x + s * gridDim.x;
       if (t < n_tiles)
-        load_tile<TW, TH>(smem + s * G::STAGE, &full[s], &map_cand, &map_meas,
+        load_tile(smem + s * G::STAGE, &full[s], &map_cand, &map_meas,
                           t, tiles_x);
     }
   }
@@ -330,7 +350,7 @@ fuse_window_kernel(const __grid_constant__ CUtensorMap map_cand,
     if (tid == 0) {
       const int tn = t + STAGES * gridDim.x;
       if (tn < n_tiles)
-        load_tile<TW, TH>(smem + s * G::STAGE, &full[s], &map_cand, &map_meas,
+        load_tile(smem + s * G::STAGE, &full[s], &map_cand, &map_meas,
                           tn, tiles_x);
     }
 
@@ -377,8 +397,8 @@ typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
 
 // Launcher errors that are not a cudaError_t are returned negative.
 #define EF_ERR_NO_ENCODER (-100000)
-#define EF_ERR_SCHEDULE (-100001)
-#define EF_ERR_OCCUPANCY (-100002)
+#define EF_ERR_OCCUPANCY (-100001)
+#define EF_MAX_DEVICES 64
 
 static EncodeTiledFn tensor_map_encoder() {
   static EncodeTiledFn fn = nullptr;
@@ -398,15 +418,16 @@ static EncodeTiledFn tensor_map_encoder() {
   return fn;
 }
 
-// A tiled map over chan viewed as [18][H][W] f32 with box {bw, bh, bc};
-// out-of-bounds elements read as zero.  Returns 0 or -CUresult.
-static int encode_box(CUtensorMap* map, const float* chan, int H, int W, int bw,
-                      int bh, int bc) {
+// A tiled map over chan viewed as [18][H][W] f32 (row pitch `pitch`, plane
+// pitch `plane`, in floats) with box {bw, bh, bc}; out-of-bounds elements
+// read as zero.  Returns 0 or -CUresult.
+static int encode_box(CUtensorMap* map, const float* chan, int H, int W,
+                      long long pitch, long long plane, int bw, int bh, int bc) {
   EncodeTiledFn encode = tensor_map_encoder();
   if (encode == nullptr) return EF_ERR_NO_ENCODER;
   const cuuint64_t dims[3] = {(cuuint64_t)W, (cuuint64_t)H,
                               (cuuint64_t)(EF_NCAND + EF_NMEAS)};
-  const cuuint64_t strides[2] = {(cuuint64_t)W * 4u, (cuuint64_t)W * H * 4u};
+  const cuuint64_t strides[2] = {(cuuint64_t)pitch * 4u, (cuuint64_t)plane * 4u};
   const cuuint32_t box[3] = {(cuuint32_t)bw, (cuuint32_t)bh, (cuuint32_t)bc};
   const cuuint32_t elem[3] = {1, 1, 1};
   const CUresult r = encode(
@@ -417,94 +438,54 @@ static int encode_box(CUtensorMap* map, const float* chan, int H, int W, int bw,
   return r == CUDA_SUCCESS ? 0 : -(int)r;
 }
 
-// A loop of `items` over `nt` threads whose last pass keeps >= nt/2 busy.
-constexpr bool last_pass_half_busy(int items, int nt) {
-  return items % nt == 0 || items % nt >= nt / 2;
-}
-
-// info (when given) receives tile_w, tile_h, threads, stages, min_blocks,
-// dynamic shared bytes, resident blocks per SM, grid, tiles.
-template <int TW, int TH, int NT, int STAGES, int MINB>
-static int launch(const float* chan, const float* par, float* out, int H, int W,
-                  float fx, float fy, float cx, float cy, float cap, int* info,
-                  cudaStream_t stream) {
-  using G = FuseTile<TW, TH>;
-  static_assert(last_pass_half_busy(G::EH * G::EW, NT),
-                "step 1's last pass must keep at least half the block busy");
-  static_assert(last_pass_half_busy(TW * TH, NT),
-                "step 3's last pass must keep at least half the block busy");
-  auto kernel = fuse_window_kernel<TW, TH, NT, STAGES, MINB>;
-  const int smem = (STAGES * G::STAGE + G::RING) * 4 + 128;
+// The resident blocks of the persistent grid on `dev` (SMs x blocks per SM),
+// found once per device; the shared-memory attribute is set on the way.
+// Returns 0 or an error code.
+static int resident_blocks(int dev, int* blocks) {
+  static int cached[EF_MAX_DEVICES] = {0};
+  if (dev >= 0 && dev < EF_MAX_DEVICES && cached[dev] > 0) {
+    *blocks = cached[dev];
+    return 0;
+  }
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      fuse_window_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      FuseTile::SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
-  CUtensorMap map_cand, map_meas;
-  int code = encode_box(&map_cand, chan, H, W, G::CW, G::SH, EF_NCAND);
-  if (code != 0) return code;
-  code = encode_box(&map_meas, chan, H, W, G::MW, G::EH, EF_NMEAS);
-  if (code != 0) return code;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  int sms = 0, per_sm = 0;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NT, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, fuse_window_kernel, FuseTile::NT, FuseTile::SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
   if (per_sm < 1) return EF_ERR_OCCUPANCY;
-  const int tiles_x = (W + TW - 1) / TW;
-  const int n_tiles = tiles_x * ((H + TH - 1) / TH);
-  const int grid = n_tiles < per_sm * sms ? n_tiles : per_sm * sms;
-  if (info != nullptr) {
-    const int v[9] = {TW, TH, NT, STAGES, MINB, smem, per_sm, grid, n_tiles};
-    for (int i = 0; i < 9; ++i) info[i] = v[i];
-  }
-  kernel<<<grid, NT, smem, stream>>>(map_cand, map_meas, par, out, H, W,
-                                     tiles_x, n_tiles, fx, fy, cx, cy, cap);
-  return (int)cudaGetLastError();
+  *blocks = per_sm * sms;
+  if (dev >= 0 && dev < EF_MAX_DEVICES) cached[dev] = *blocks;
+  return 0;
 }
 
-// chan [18,H,W], par [12] = R row-major | t (device), out [16,H,W]; all f32.
-// `schedule` picks the tile shape / threads / stages / blocks per SM (the
-// wrapper's SCHEDULES lists them in this order).
-extern "C" int ef_fuse_window(const float* chan, const float* par, float* out,
+// chan [18,H,W] with row pitch `pitch` and plane pitch `plane` (floats, each
+// a multiple of 4; chan 16-byte aligned), par [12] = R row-major | t (device),
+// out [16,H,W] contiguous; all f32.
+extern "C" int ef_fuse_window(const float* chan, long long pitch,
+                              long long plane, const float* par, float* out,
                               int H, int W, float fx, float fy, float cx,
-                              float cy, float cap, int schedule, int* info,
-                              void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (schedule) {
-    case 0:
-      return launch<32, 16, 320, 2, 1>(chan, par, out, H, W, fx, fy, cx, cy,
-                                       cap, info, st);
-    case 1:
-      return launch<32, 16, 320, 1, 2>(chan, par, out, H, W, fx, fy, cx, cy,
-                                       cap, info, st);
-    case 2:
-      return launch<28, 14, 480, 2, 2>(chan, par, out, H, W, fx, fy, cx, cy,
-                                       cap, info, st);
-    case 3:
-      return launch<64, 8, 256, 1, 2>(chan, par, out, H, W, fx, fy, cx, cy,
-                                      cap, info, st);
-    case 4:
-      return launch<32, 8, 128, 1, 4>(chan, par, out, H, W, fx, fy, cx, cy,
-                                      cap, info, st);
-    case 5:
-      return launch<40, 15, 384, 1, 2>(chan, par, out, H, W, fx, fy, cx, cy,
-                                       cap, info, st);
-    case 6:
-      return launch<40, 15, 768, 2, 1>(chan, par, out, H, W, fx, fy, cx, cy,
-                                       cap, info, st);
-    case 7:
-      return launch<32, 20, 384, 1, 2>(chan, par, out, H, W, fx, fy, cx, cy,
-                                       cap, info, st);
-    case 8:
-      return launch<32, 13, 256, 1, 3>(chan, par, out, H, W, fx, fy, cx, cy,
-                                       cap, info, st);
-    case 9:
-      return launch<36, 11, 512, 2, 2>(chan, par, out, H, W, fx, fy, cx, cy,
-                                       cap, info, st);
-    case 10:
-      return launch<36, 22, 1024, 2, 1>(chan, par, out, H, W, fx, fy, cx, cy,
-                                        cap, info, st);
-    default:
-      return EF_ERR_SCHEDULE;
-  }
+                              float cy, float cap, void* stream) {
+  using G = FuseTile;
+  int dev = 0, blocks = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  int code = resident_blocks(dev, &blocks);
+  if (code != 0) return code;
+  // the maps hold chan's address, so they are encoded for every call
+  CUtensorMap map_cand, map_meas;
+  code = encode_box(&map_cand, chan, H, W, pitch, plane, G::CW, G::SH, EF_NCAND);
+  if (code != 0) return code;
+  code = encode_box(&map_meas, chan, H, W, pitch, plane, G::MW, G::EH, EF_NMEAS);
+  if (code != 0) return code;
+  const int tiles_x = (W + G::TW - 1) / G::TW;
+  const int n_tiles = tiles_x * ((H + G::TH - 1) / G::TH);
+  const int grid = n_tiles < blocks ? n_tiles : blocks;
+  fuse_window_kernel<<<grid, G::NT, G::SMEM_BYTES, (cudaStream_t)stream>>>(
+      map_cand, map_meas, par, out, H, W, tiles_x, n_tiles, fx, fy, cx, cy, cap);
+  return (int)cudaGetLastError();
 }

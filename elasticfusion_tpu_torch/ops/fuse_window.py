@@ -10,7 +10,9 @@ tiles' loads in flight while the current one is searched; contributions
 gathered by winning offset — no atomics, so sums have a fixed order and the
 result is bit-identical to the plain version); on a CPU tensor it takes the
 plain version below.  Bound by bytes: 18 channels read, 16 written.  The TMA
-row pitch needs W % 4 == 0 on a card.
+loads need row and plane pitches of a multiple of 4 floats: `tma_layout`
+passes such a `chan` through (the main path's 640-wide one) and pads any
+other into a buffer that has them, so every width runs on a card.
 
 Input channels `[18,H,W]` (f32; ids as exact floats, so capacity < 2^24):
   0 pred index + 1 (0 = empty) · 1-3 pred vert · 4-6 pred normal ·
@@ -33,32 +35,29 @@ from .._build import check_launch, kernel_function
 
 COS_HALF = 0.87758256189  # cos(0.5 rad), data.vert:148
 _OFFSETS = [(dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1)]
-# chan, params, out, H, W, fx, fy, cx, cy, cap, schedule, info, stream
-_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-             ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float,
-             ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-             ctypes.c_void_p)
-# The kernel's schedules, in the order of `ef_fuse_window`'s switch: tile
-# shape, threads per block, TMA stages, blocks per SM asked of the compiler.
-# All give the same result; `chip_smoke.py` times each, and the default is
-# the fastest on an H100 at 640x480 (PERF.md): 792 tiles = 3 per block.
-SCHEDULES = (
-    "32x16 tiles, 320 threads, 2 stages, 1 block/SM",
-    "32x16 tiles, 320 threads, 1 stage, 2 blocks/SM",
-    "28x14 tiles, 480 threads, 2 stages, 2 blocks/SM",
-    "64x8 tiles, 256 threads, 1 stage, 2 blocks/SM",
-    "32x8 tiles, 128 threads, 1 stage, 4 blocks/SM",
-    "40x15 tiles, 384 threads, 1 stage, 2 blocks/SM",
-    "40x15 tiles, 768 threads, 2 stages, 1 block/SM",
-    "32x20 tiles, 384 threads, 1 stage, 2 blocks/SM",
-    "32x13 tiles, 256 threads, 1 stage, 3 blocks/SM",
-    "36x11 tiles, 512 threads, 2 stages, 2 blocks/SM",
-    "36x22 tiles, 1024 threads, 2 stages, 1 block/SM",
-)
-DEFAULT_SCHEDULE = 9
-# what the launcher reports of a launch
-LAUNCH_INFO = ("tile_w", "tile_h", "threads", "stages", "min_blocks",
-               "smem_bytes", "blocks_per_sm", "grid", "tiles")
+# chan, row pitch, plane pitch, params, out, H, W, fx, fy, cx, cy, cap, stream
+_ARGTYPES = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+             ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+             ctypes.c_float, ctypes.c_void_p)
+_TMA_ALIGN = 4  # floats: the TMA base and its strides lie on 16 bytes
+
+
+def tma_layout(chan: torch.Tensor) -> torch.Tensor:
+    """`chan` itself when the TMA loads can read it in place (unit column
+    stride, row and plane pitches a multiple of 4 floats, base on 16 bytes),
+    else a copy into a `[18,H,W]` view of a buffer whose rows are padded to
+    a multiple of 4 floats — so the kernel runs at any width."""
+    _, H, W = chan.shape
+    s_plane, s_row, s_col = chan.stride()
+    if (s_col == 1 and s_row >= W and s_plane >= H * s_row
+            and s_row % _TMA_ALIGN == 0 and s_plane % _TMA_ALIGN == 0
+            and chan.data_ptr() % (4 * _TMA_ALIGN) == 0):
+        return chan
+    pitch = -(-W // _TMA_ALIGN) * _TMA_ALIGN
+    padded = torch.empty((chan.shape[0], H, pitch), dtype=chan.dtype,
+                         device=chan.device)[:, :, :W]
+    return padded.copy_(chan)
 
 
 def fuse_window_plain(chan: torch.Tensor, params: torch.Tensor, fx: float,
@@ -148,12 +147,9 @@ def fuse_window_plain(chan: torch.Tensor, params: torch.Tensor, fx: float,
 
 
 def fuse_window(chan: torch.Tensor, params: torch.Tensor, fx: float, fy: float,
-                cx: float, cy: float, cap: int,
-                schedule: int = DEFAULT_SCHEDULE) -> torch.Tensor:
+                cx: float, cy: float, cap: int) -> torch.Tensor:
     """chan `[18,H,W]`, params `[12]` (same device) → `[16,H,W]`; see the
-    module docstring for the channel orders.  `schedule` indexes
-    `SCHEDULES` (the kernel's tile walk; every one gives the same result);
-    the launch's geometry is left in `fuse_window.last_launch`."""
+    module docstring for the channel orders."""
     if chan.dim() != 3 or chan.shape[0] != 18 or chan.dtype != torch.float32:
         raise ValueError(f"fuse_window wants [18,H,W] float32, got "
                          f"{tuple(chan.shape)} {chan.dtype}")
@@ -167,28 +163,20 @@ def fuse_window(chan: torch.Tensor, params: torch.Tensor, fx: float, fy: float,
         return fuse_window_plain(chan, params, fx, fy, cx, cy, cap)
     if chan.device.type != "cuda":
         raise ValueError(f"fuse_window: unsupported device {chan.device}")
-    if not (chan.is_contiguous() and params.is_contiguous()):
-        raise ValueError("fuse_window: chan and params must be contiguous")
+    if not params.is_contiguous():
+        raise ValueError("fuse_window: params must be contiguous")
     _, H, W = chan.shape
-    if W % 4 or chan.data_ptr() % 16:
-        raise ValueError(f"fuse_window: the TMA loads need W % 4 == 0 and a "
-                         f"16-byte aligned chan (W={W})")
-    if not 0 <= schedule < len(SCHEDULES):
-        raise ValueError(f"fuse_window: schedule {schedule} outside "
-                         f"0..{len(SCHEDULES) - 1}")
+    chan = tma_layout(chan)
 
     fn = kernel_function("fuse_window", "ef_fuse_window", _ARGTYPES)
     out = torch.empty((16, H, W), dtype=torch.float32, device=chan.device)
-    info = (ctypes.c_int * len(LAUNCH_INFO))()
     with torch.cuda.device(chan.device):
-        code = fn(chan.data_ptr(), params.data_ptr(), out.data_ptr(), H, W,
-                  fx, fy, cx, cy, float(cap), schedule, info,
-                  torch.cuda.current_stream().cuda_stream)
+        code = fn(chan.data_ptr(), chan.stride(1), chan.stride(0),
+                  params.data_ptr(), out.data_ptr(), H, W, fx, fy, cx, cy,
+                  float(cap), torch.cuda.current_stream().cuda_stream)
     check_launch(code, "fuse_window")
     fuse_window.launches += 1
-    fuse_window.last_launch = dict(zip(LAUNCH_INFO, info))
     return out
 
 
 fuse_window.launches = 0
-fuse_window.last_launch = {}

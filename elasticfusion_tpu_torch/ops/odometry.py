@@ -553,13 +553,10 @@ def so3_step_plain(
     image_basis: torch.Tensor,  # (3,3) K R K⁻¹
     kinv: torch.Tensor,         # (3,3)
     krlr: torch.Tensor,         # (3,3) K R
-    tables: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> GramSO3:
     """Whole-image rotation-only Lucas-Kanade step, mirroring
     SO3Reduction::getProducts (reduce.cu:820-896).  Gradients are central
-    differences in the original's (back−fore)/2 form — the NEGATIVE of d/dx.
-    `tables` are the two images' `so3_neighborhood_table`s (built here when
-    not given)."""
+    differences in the original's (back−fore)/2 form — the NEGATIVE of d/dx."""
     H, W = next_image.shape
     x, y = _flat_xy(H, W, next_image.device)
 
@@ -578,13 +575,9 @@ def so3_step_plain(
     )
 
     flat_w = torch.clamp(wy, 1, H - 2) * W + torch.clamp(wx, 1, W - 2)
-    if tables is None:
-        tables = (so3_neighborhood_table(next_image),
-                  so3_neighborhood_table(last_image))
-    next_table, last_table = tables
-    n_at, n_xm, n_xp, n_ym, n_yp = next_table[:, flat_w]
+    n_at, n_xm, n_xp, n_ym, n_yp = so3_neighborhood_table(next_image)[:, flat_w]
     flat_l = torch.clamp(yi, 1, H - 2) * W + torch.clamp(xi, 1, W - 2)
-    l_at, l_xm, l_xp, l_ym, l_yp = last_table[:, flat_l]
+    l_at, l_xm, l_xp, l_ym, l_yp = so3_neighborhood_table(last_image)[:, flat_l]
 
     gnx = (n_xm - n_xp) * 0.5
     gny = (n_ym - n_yp) * 0.5
@@ -620,16 +613,15 @@ def so3_step_plain(
 def so3_step(
     last_image: torch.Tensor, next_image: torch.Tensor,
     image_basis: torch.Tensor, kinv: torch.Tensor, krlr: torch.Tensor,
-    tables: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     out: Optional[torch.Tensor] = None,
 ) -> GramSO3:
     """`so3_step_plain` for CPU tensors; for CUDA tensors one launch of
     `ef_so3_step`, which reads each pixel's four neighbours straight from the
-    two images (so `tables` is not used there).  `out`, when given, is a
+    two images.  `out`, when given, is a
     float32 `[14]` slice that receives A (9, row-major), b (3), Σr², count —
     the returned GramSO3 then views it."""
     if next_image.device.type == "cpu":
-        g = so3_step_plain(last_image, next_image, image_basis, kinv, krlr, tables)
+        g = so3_step_plain(last_image, next_image, image_basis, kinv, krlr)
         if out is not None:
             out[0:9] = g.A.reshape(-1)
             out[9:12] = g.b

@@ -11,6 +11,7 @@ import os
 import pkgutil
 import re
 
+import numpy as np
 import pytest
 import torch
 
@@ -164,32 +165,72 @@ def test_import_builds_nothing_and_starts_no_cuda_context():
     assert _build._libs == {} and _build.build_log == ""
 
 
+def _k3_schedule():
+    """The tile shape, threads, stages and blocks per SM of `FuseTile` in
+    csrc/fuse_window.cu."""
+    with open(os.path.join(PKG, "csrc", "fuse_window.cu"), encoding="utf-8") as f:
+        text = f.read()
+    found = {}
+    for name in ("TW", "TH", "NT", "STAGES", "MINB"):
+        m = re.search(r"\b" + name + r" = (\d+)[,;]", text)
+        assert m, f"FuseTile::{name} not found"
+        found[name] = int(m.group(1))
+    return found
+
+
 def test_k3_schedules_keep_both_loops_of_a_tile_at_least_half_busy():
-    """Every schedule of `ef_fuse_window` (tile shape and threads, in the
-    order of its switch) keeps the last pass of step 1 (tile + 1-ring) and of
+    """K3's one schedule keeps the last pass of step 1 (tile + 1-ring) and of
     step 3 (tile) at least half busy, and its TMA boxes fit the hardware's
     limits: starts and rows on 16 bytes, at most 256 elements a dimension,
     and its stages fit the SM's shared memory as many times as it asks."""
-    with open(os.path.join(PKG, "csrc", "fuse_window.cu"), encoding="utf-8") as f:
-        text = f.read()
-    launched = re.findall(r"launch<(\d+), (\d+), (\d+), (\d+), (\d+)>", text)
-    assert len(launched) == len(fuse_window_mod.SCHEDULES)
-    for dims, desc in zip(launched, fuse_window_mod.SCHEDULES):
-        tw, th, nt, stages, per_sm = map(int, dims)
-        assert desc.startswith(f"{tw}x{th} tiles, {nt} threads, {stages} stage")
-        assert desc.endswith(f"{per_sm} block/SM" if per_sm == 1 else f"{per_sm} blocks/SM")
-        for items in ((tw + 2) * (th + 2), tw * th):
-            assert items % nt == 0 or items % nt >= nt // 2, (desc, items)
-        # both boxes start 4 columns left of the tile: a TMA box must start
-        # on 16 bytes, so the tile's own columns must too
-        assert tw % 4 == 0, desc
-        box_a = (tw + 8, th + 4, 8)
-        box_b = (tw + 8, th + 2, 10)
-        for box in (box_a, box_b):
-            assert box[0] * 4 % 16 == 0 and max(box) <= 256
-        # stages of both boxes (each on 128 bytes) plus the 13-channel ring,
-        # and 128 bytes of slack for aligning the base
-        stage = sum(-(-(bw * bh * bc) // 32) * 32 for bw, bh, bc in (box_a, box_b))
-        smem = 4 * (stages * stage + 13 * (tw + 2) * (th + 2)) + 128
-        assert per_sm * (smem + 1024) <= 228 * 1024, (desc, smem)
+    k = _k3_schedule()
+    tw, th, nt, stages, per_sm = k["TW"], k["TH"], k["NT"], k["STAGES"], k["MINB"]
+    assert (tw, th, nt, stages, per_sm) == (36, 11, 512, 2, 2)
+    for items in ((tw + 2) * (th + 2), tw * th):
+        assert items % nt == 0 or items % nt >= nt // 2, items
+    # both boxes start 4 columns left of the tile: a TMA box must start on 16
+    # bytes, so the tile's own columns must too
+    assert tw % 4 == 0
+    box_a = (tw + 8, th + 4, 8)
+    box_b = (tw + 8, th + 2, 10)
+    for box in (box_a, box_b):
+        assert box[0] * 4 % 16 == 0 and max(box) <= 256
+    # stages of both boxes (each on 128 bytes) plus the 13-channel ring, and
+    # 128 bytes of slack for aligning the base
+    stage = sum(-(-(bw * bh * bc) // 32) * 32 for bw, bh, bc in (box_a, box_b))
+    smem = 4 * (stages * stage + 13 * (tw + 2) * (th + 2)) + 128
+    assert per_sm * (smem + 1024) <= 228 * 1024, smem
 
+
+@pytest.mark.parametrize("H,W", [(480, 640), (120, 160), (70, 100), (70, 102)])
+def test_k3_tile_walk_covers_every_pixel_once(H, W):
+    """The persistent grid's walk (block b takes tiles b, b + grid, ...; 264
+    resident blocks, as on an H100) writes every output pixel exactly once,
+    at any image size: step 3 writes the tile's pixels inside the image."""
+    k = _k3_schedule()
+    tw, th = k["TW"], k["TH"]
+    tiles_x, tiles_y = -(-W // tw), -(-H // th)
+    n_tiles = tiles_x * tiles_y
+    grid = min(n_tiles, 2 * 132)
+    hits = np.zeros((H, W), np.int64)
+    for b in range(grid):
+        for t in range(b, n_tiles, grid):
+            y0, x0 = (t // tiles_x) * th, (t % tiles_x) * tw
+            hits[y0:y0 + th, x0:x0 + tw] += 1
+    assert (hits == 1).all()
+
+
+def test_tma_layout_reads_in_place_or_pads_the_rows():
+    """`tma_layout` passes through a tensor whose pitches and base suit the
+    TMA loads (the main path's `cat`, an aligned crop of it) and pads any
+    other to rows of a multiple of 4 floats, keeping every value."""
+    rng = np.random.default_rng(3)
+    full = torch.from_numpy(rng.standard_normal((18, 48, 64)).astype(np.float32))
+    assert fuse_window_mod.tma_layout(full) is full
+    crop = full[:, 5:25, 8:30]             # row pitch 64, base 8 floats in
+    assert fuse_window_mod.tma_layout(crop) is crop
+    for odd in (crop.contiguous(), full[:, 5:25, 9:31]):   # pitch 22 / base 9
+        got = fuse_window_mod.tma_layout(odd)
+        assert got is not odd and got.shape == odd.shape
+        assert got.stride() == (20 * 24, 24, 1)
+        assert got.data_ptr() % 16 == 0 and torch.equal(got, odd)
