@@ -25,8 +25,18 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      launched, `gram_outer` not at all), pose error against the known poses,
      surfel count, coverage, bit-identical repeat, ms/frame, host syncs per
      frame, peak memory;
-  5. one JSON line `{"kernels": [...]}`;
-  6. last line `{"ok": true, "device": {...}}`.
+  5. the loop-closure path at 640x480, each run read with the counts set to 0
+     just before it: (a) the same sweep with `closeLoops=True` (the steady
+     per-frame cost of the default configuration), twice; (b) a there-and-back
+     run whose return closes loops locally (model-to-model + deformation),
+     twice, with the host time and reads of every closure; (c) fern
+     retrieval with the fern-resolution ICP; (d) relocalization after a
+     blackout; and the tracking steps held against their plain versions on
+     the arguments of the model-to-model solve (three levels) and of the fern
+     ICP (80x60), with the launches and reads of each caller;
+  6. one JSON line `{"kernels": [...]}` (entries with `caller` are the
+     model-to-model and fern-ICP runs of the tracking steps);
+  7. last line `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -46,6 +56,8 @@ if not torch.cuda.is_available():
     sys.exit(1)
 
 from elasticfusion_tpu_torch import _build, _device  # noqa: E402
+from elasticfusion_tpu_torch import engine as engine_mod  # noqa: E402
+from elasticfusion_tpu_torch import ferns as ferns_mod  # noqa: E402
 from elasticfusion_tpu_torch import tracking as tracking_mod  # noqa: E402
 from elasticfusion_tpu_torch.config import CameraConfig, EngineConfig  # noqa: E402
 from elasticfusion_tpu_torch.engine import Engine  # noqa: E402
@@ -57,6 +69,11 @@ from elasticfusion_tpu_torch.ops.fuse_window import (  # noqa: E402
     tma_layout,
 )
 from elasticfusion_tpu_torch.ops.gram import gram_outer, gram_outer_plain  # noqa: E402
+from elasticfusion_tpu_torch.ops.preprocess import (  # noqa: E402
+    compute_nmap,
+    compute_vmap,
+    metricise_depth,
+)
 from elasticfusion_tpu_torch.ops.odometry import (  # noqa: E402
     compute_rgb_residual,
     compute_rgb_residual_plain,
@@ -201,6 +218,102 @@ def engine_config(cam: CameraConfig) -> EngineConfig:
     )
 
 
+# the caller of the tracker whose kernel launches are being made: the frame's
+# own tracking, the model-to-model solve or the fern-resolution ICP
+CALLER = ["frame"]
+STEP_WRAPPERS = {"so3_step": so3_step, "icp_step": icp_step,
+                 "compute_rgb_residual": compute_rgb_residual, "rgb_step": rgb_step}
+# the image height of a step's level, from its arguments
+STEP_LEVEL = {"so3_step": lambda a: a[1].shape[0], "icp_step": lambda a: a[1].shape[1],
+              "compute_rgb_residual": lambda a: a[1].shape[0],
+              "rgb_step": lambda a: a[2].shape[1]}
+STEP_NAME = {"compute_rgb_residual": "rgb_residual"}
+
+
+class StepRecorder:
+    """Keep the arguments of the last call of every tracking step, keyed by
+    (kernel, caller, level height), and of K2 / K3 by name, while the
+    wrapped calls go on to the real wrappers."""
+
+    def __init__(self, captured: dict):
+        self.captured = captured
+
+    def _wrap(self, name, fn, level_of=None):
+        def wrapper(*args, **kwargs):
+            kept = {k: v for k, v in kwargs.items() if k != "out"}
+            if level_of is None:
+                self.captured[name] = args
+            else:
+                self.captured[(STEP_NAME.get(name, name), CALLER[-1],
+                               level_of(args))] = (args, kept)
+            return fn(*args, **kwargs)
+        return wrapper
+
+    def __enter__(self):
+        splat_ops.splat_resolve = self._wrap("splat_resolve", splat_resolve)
+        fuse_ops.fuse_window = self._wrap("fuse_window", fuse_window)
+        for name, fn in STEP_WRAPPERS.items():
+            setattr(tracking_mod, name, self._wrap(name, fn, STEP_LEVEL[name]))
+        return self
+
+    def __exit__(self, *exc):
+        splat_ops.splat_resolve = splat_resolve
+        fuse_ops.fuse_window = fuse_window
+        for name, fn in STEP_WRAPPERS.items():
+            setattr(tracking_mod, name, fn)
+
+
+class CallerCounts:
+    """Count, per caller of the tracker (model-to-model, fern ICP), its runs,
+    its tracker reads and the launches of every kernel made inside it."""
+
+    def __init__(self, tracker_reads: list):
+        self.tracker_reads = tracker_reads
+        self.runs = {"m2m": 0, "fern_icp": 0}
+        self.reads = {"m2m": 0, "fern_icp": 0}
+        self.launches = {c: {k: 0 for k in WRAPPERS} for c in self.runs}
+
+    def _wrap(self, caller, fn):
+        def wrapper(*args, **kwargs):
+            before = {k: w.launches for k, w in WRAPPERS.items()}
+            r0 = len(self.tracker_reads)
+            CALLER.append(caller)
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                CALLER.pop()
+                self.runs[caller] += 1
+                self.reads[caller] += len(self.tracker_reads) - r0
+                for k, w in WRAPPERS.items():
+                    self.launches[caller][k] += w.launches - before[k]
+        return wrapper
+
+    def __enter__(self):
+        self._m2m, self._icp = engine_mod._model_to_model, ferns_mod.Ferns._fern_icp
+        engine_mod._model_to_model = self._wrap("m2m", self._m2m)
+        ferns_mod.Ferns._fern_icp = self._wrap("fern_icp", self._icp)
+        return self
+
+    def __exit__(self, *exc):
+        engine_mod._model_to_model = self._m2m
+        ferns_mod.Ferns._fern_icp = self._icp
+
+    def check_identity(self, what: str) -> None:
+        """Every model-to-model run is one pose read plus its Gauss-Newton
+        iterations, each of which launched icp_step, rgb_residual and
+        rgb_step once; a fern ICP the same with icp_step only; neither runs
+        SO(3)."""
+        for caller, rgb in (("m2m", True), ("fern_icp", False)):
+            n, L = self.runs[caller], self.launches[caller]
+            gn = L["icp_step"]
+            if n == 0:
+                continue
+            check(L["so3_step"] == 0 and self.reads[caller] == n + gn
+                  and L["rgb_residual"] == L["rgb_step"] == (gn if rgb else 0),
+                  f"{what}: {n} {caller} runs, {self.reads[caller]} tracker reads = "
+                  f"{n} poses + {gn} Gauss-Newton iterations, launches {L}")
+
+
 def capture_kernel_inputs(cam, frames):
     """Run the first frames of the sweep and keep the tensors the main path
     hands to its kernels on the last of them: real winner channels and a real
@@ -208,38 +321,12 @@ def capture_kernel_inputs(cam, frames):
     and for the tracking steps the arguments of the last Gauss-Newton iteration
     at every pyramid level (keyed by the level's image height)."""
     captured = {}
-
-    def recording(name, fn, level_of=None):
-        def wrapper(*args, **kwargs):
-            kwargs_kept = {k: v for k, v in kwargs.items() if k != "out"}
-            key = name if level_of is None else (name, level_of(args))
-            captured[key] = (args, kwargs_kept) if level_of else args
-            return fn(*args, **kwargs)
-        return wrapper
-
-    splat_ops.splat_resolve = recording("splat_resolve", splat_resolve)
-    fuse_ops.fuse_window = recording("fuse_window", fuse_window)
-    tracking_mod.so3_step = recording(
-        "so3_step", so3_step, lambda a: a[1].shape[0])
-    tracking_mod.icp_step = recording(
-        "icp_step", icp_step, lambda a: a[1].shape[1])
-    tracking_mod.compute_rgb_residual = recording(
-        "rgb_residual", compute_rgb_residual, lambda a: a[1].shape[0])
-    tracking_mod.rgb_step = recording(
-        "rgb_step", rgb_step, lambda a: a[2].shape[1])
-    try:
-        eng = Engine(engine_config(cam))
+    with StepRecorder(captured):
+        eng = Engine(engine_config(cam), device=DEV)
         for i in range(5):
             d, r = frames[i]
             eng.process_frame(r, d, timestamp=i)
         torch.cuda.synchronize()
-    finally:
-        splat_ops.splat_resolve = splat_resolve
-        fuse_ops.fuse_window = fuse_window
-        tracking_mod.so3_step = so3_step
-        tracking_mod.icp_step = icp_step
-        tracking_mod.compute_rgb_residual = compute_rgb_residual
-        tracking_mod.rgb_step = rgb_step
     return captured
 
 
@@ -266,93 +353,113 @@ def gram_agrees(what, got, plain, n_pixels, max_flips=None):
     return worst, dc
 
 
+def check_steps_at(cap_in, caller, H, W, names=("icp_step", "rgb_residual", "rgb_step")):
+    """The tracking steps `names` against their plain versions on the
+    arguments of `caller`'s last Gauss-Newton iteration at the level of
+    height H, then their times.  Returns name -> that level's numbers."""
+    F32 = 4
+    N = H * W
+    tag = f"{W}x{H}"
+    out = {}
+    for name in names:
+        check((name, caller, H) in cap_in, f"{caller} ran {name} at {tag}")
+
+    # --- ICP ---
+    a, kw = cap_in[("icp_step", caller, H)]
+    got, again, plain = icp_step(*a, **kw), icp_step(*a, **kw), icp_step_plain(*a, **kw)
+    torch.cuda.synchronize()
+    err, _ = gram_agrees(f"{caller} icp_step {tag}", got, plain, N)
+    check(all(torch.equal(x, y) for x, y in zip(got, again)),
+          f"{caller} icp_step {tag} bit-identical on repeat")
+    v, n = a[1], a[2]
+    n_in = int(((v[2] > 0) & ((n * n).sum(0) > 1e-12)).sum())
+    b_ms, b_by = bound((6 * N + 6 * n_in + 24 + 44) * F32, 160.0 * n_in)
+    out["icp_step"] = dict(
+        max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+        bytes=(6 * N + 6 * n_in + 24 + 44) * F32,
+        ms=time_ms(lambda: icp_step(*a, **kw), queue_first=True),
+        plain_ms=time_ms(lambda: icp_step_plain(*a, **kw), reps=5, warm=1))
+    if "rgb_residual" not in names:
+        return out
+
+    # --- RGB residual ---
+    ra, rkw = cap_in[("rgb_residual", caller, H)]
+    ck = compute_rgb_residual(*ra, **rkw)
+    ck2 = compute_rgb_residual(*ra, **rkw)
+    cp = compute_rgb_residual_plain(*ra, **rkw)
+    torch.cuda.synchronize()
+    valid_k = ck.flat0 >= 0
+    flips = int((valid_k != cp.valid).sum())
+    both = valid_k & cp.valid
+    flat_p = (cp.v0 * W + cp.u0).to(torch.int32)
+    moved = int((ck.flat0[both] != flat_p[both]).sum())
+    d_err = float((ck.diff[both] - cp.diff[both]).abs().max())
+    s_err = abs(float(ck.sigma_sum) - float(cp.sigma_sum))
+    check(flips <= 1e-4 * N and moved <= 1e-4 * N
+          and float(cp.count) >= 100
+          and abs(float(ck.count) - float(cp.count)) <= 1e-4 * N,
+          f"{caller} rgb_residual {tag}: count {float(ck.count):.0f} vs plain "
+          f"{float(cp.count):.0f}, {flips} validity flips, {moved} matches at "
+          f"another pixel (allowed {1e-4 * N:.0f} each)")
+    check(s_err <= 1e-4 * float(cp.sigma_sum) and d_err <= 1e-5,
+          f"{caller} rgb_residual {tag}: sum diff^2 |err| {s_err:.3e} <= 1e-4 x "
+          f"{float(cp.sigma_sum):.3e}; max |diff err| {d_err:.2e}")
+    check(torch.equal(ck.flat0, ck2.flat0) and torch.equal(ck.diff, ck2.diff)
+          and torch.equal(ck.count, ck2.count)
+          and torch.equal(ck.sigma_sum, ck2.sigma_sum),
+          f"{caller} rgb_residual {tag} bit-identical on repeat")
+    n_gate = int(rkw["static_gates"].sum())
+    n_valid = int(valid_k.sum())
+    r_bytes = N * (1 + 8) + n_gate * 12 + n_valid * 4 + (12 + 2) * F32
+    b_ms, b_by = bound(r_bytes, 30.0 * n_gate)
+    out["rgb_residual"] = dict(
+        max_abs_err=s_err, bound_ms=b_ms, bound_by=b_by, bytes=r_bytes,
+        ms=time_ms(lambda: compute_rgb_residual(*ra, **rkw), queue_first=True),
+        plain_ms=time_ms(lambda: compute_rgb_residual_plain(*ra, **rkw),
+                         reps=5, warm=1))
+
+    # --- RGB step (sigma derived from the residual's sums on both sides) ---
+    sa, skw = cap_in[("rgb_step", caller, H)]
+    rest = sa[2:]
+    got, again = rgb_step(ck, None, *rest), rgb_step(ck, None, *rest)
+    plain = rgb_step_plain(cp, None, *rest)
+    torch.cuda.synchronize()
+    err, _ = gram_agrees(f"{caller} rgb_step {tag}", got, plain, N)
+    check(all(torch.equal(x, y) for x, y in zip(got, again)),
+          f"{caller} rgb_step {tag} bit-identical on repeat")
+    s_bytes = N * 4 + n_valid * 24 + (2 + 43) * F32
+    b_ms, b_by = bound(s_bytes, 110.0 * n_valid)
+    out["rgb_step"] = dict(
+        max_abs_err=err, bound_ms=b_ms, bound_by=b_by, bytes=s_bytes,
+        ms=time_ms(lambda: rgb_step(ck, None, *rest), queue_first=True),
+        plain_ms=time_ms(lambda: rgb_step_plain(cp, None, *rest), reps=5, warm=1))
+    return out
+
+
+def step_entries(caller, by_level, full, extra=None):
+    """`kernels` line entries of the tracking steps from their levels."""
+    return {
+        (name, caller): dict(
+            name=name, route="cuda",
+            source="elasticfusion_tpu_torch/csrc/odometry_steps.cu",
+            replaces="elasticfusion_tpu/ops/gram_pallas.py:24",
+            library_ms=None, levels=levels, **(extra or {}), **levels[full])
+        for name, levels in by_level.items()}
+
+
 def phase_tracking_kernels(cam, cap_in, entries):
     """icp_step, rgb_residual, rgb_step against their plain versions at the
-    three pyramid levels, then their times."""
+    three pyramid levels of the frame's tracking, then so3_step."""
     F32 = 4
     by_level = {"icp_step": {}, "rgb_residual": {}, "rgb_step": {}}
     for lvl in range(3):
         H, W = cam.height >> lvl, cam.width >> lvl
-        N = H * W
-        tag = f"{W}x{H}"
-        for name in by_level:
-            check((name, H) in cap_in, f"the main path ran {name} at {tag}")
+        for name, lv in check_steps_at(cap_in, "frame", H, W).items():
+            by_level[name][f"{W}x{H}"] = lv
 
-        # --- ICP ---
-        a, kw = cap_in[("icp_step", H)]
-        got, again, plain = icp_step(*a, **kw), icp_step(*a, **kw), icp_step_plain(*a, **kw)
-        torch.cuda.synchronize()
-        err, _ = gram_agrees(f"icp_step {tag}", got, plain, N)
-        check(all(torch.equal(x, y) for x, y in zip(got, again)),
-              f"icp_step {tag} bit-identical on repeat")
-        v, n = a[1], a[2]
-        n_in = int(((v[2] > 0) & ((n * n).sum(0) > 1e-12)).sum())
-        b_ms, b_by = bound((6 * N + 6 * n_in + 24 + 44) * F32, 160.0 * n_in)
-        by_level["icp_step"][tag] = dict(
-            max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
-            bytes=(6 * N + 6 * n_in + 24 + 44) * F32,
-            ms=time_ms(lambda: icp_step(*a, **kw), queue_first=True),
-            plain_ms=time_ms(lambda: icp_step_plain(*a, **kw), reps=5, warm=1))
-
-        # --- RGB residual ---
-        ra, rkw = cap_in[("rgb_residual", H)]
-        ck = compute_rgb_residual(*ra, **rkw)
-        ck2 = compute_rgb_residual(*ra, **rkw)
-        cp = compute_rgb_residual_plain(*ra, **rkw)
-        torch.cuda.synchronize()
-        valid_k = ck.flat0 >= 0
-        flips = int((valid_k != cp.valid).sum())
-        both = valid_k & cp.valid
-        flat_p = (cp.v0 * W + cp.u0).to(torch.int32)
-        moved = int((ck.flat0[both] != flat_p[both]).sum())
-        d_err = float((ck.diff[both] - cp.diff[both]).abs().max())
-        s_err = abs(float(ck.sigma_sum) - float(cp.sigma_sum))
-        check(flips <= 1e-4 * N and moved <= 1e-4 * N
-              and float(cp.count) >= 100
-              and abs(float(ck.count) - float(cp.count)) <= 1e-4 * N,
-              f"rgb_residual {tag}: count {float(ck.count):.0f} vs plain "
-              f"{float(cp.count):.0f}, {flips} validity flips, {moved} matches at "
-              f"another pixel (allowed {1e-4 * N:.0f} each)")
-        check(s_err <= 1e-4 * float(cp.sigma_sum) and d_err <= 1e-5,
-              f"rgb_residual {tag}: sum diff^2 |err| {s_err:.3e} <= 1e-4 x "
-              f"{float(cp.sigma_sum):.3e}; max |diff err| {d_err:.2e}")
-        check(torch.equal(ck.flat0, ck2.flat0) and torch.equal(ck.diff, ck2.diff)
-              and torch.equal(ck.count, ck2.count)
-              and torch.equal(ck.sigma_sum, ck2.sigma_sum),
-              f"rgb_residual {tag} bit-identical on repeat")
-        n_gate = int(rkw["static_gates"].sum())
-        n_valid = int(valid_k.sum())
-        r_bytes = N * (1 + 8) + n_gate * 12 + n_valid * 4 + (12 + 2) * F32
-        b_ms, b_by = bound(r_bytes, 30.0 * n_gate)
-        by_level["rgb_residual"][tag] = dict(
-            max_abs_err=s_err, bound_ms=b_ms, bound_by=b_by, bytes=r_bytes,
-            ms=time_ms(lambda: compute_rgb_residual(*ra, **rkw), queue_first=True),
-            plain_ms=time_ms(lambda: compute_rgb_residual_plain(*ra, **rkw),
-                             reps=5, warm=1))
-
-        # --- RGB step (sigma derived from the residual's sums on both sides) ---
-        sa, skw = cap_in[("rgb_step", H)]
-        rest = sa[2:]
-        got, again = rgb_step(ck, None, *rest), rgb_step(ck, None, *rest)
-        plain = rgb_step_plain(cp, None, *rest)
-        torch.cuda.synchronize()
-        err, _ = gram_agrees(f"rgb_step {tag}", got, plain, N)
-        check(all(torch.equal(x, y) for x, y in zip(got, again)),
-              f"rgb_step {tag} bit-identical on repeat")
-        s_bytes = N * 4 + n_valid * 24 + (2 + 43) * F32
-        b_ms, b_by = bound(s_bytes, 110.0 * n_valid)
-        by_level["rgb_step"][tag] = dict(
-            max_abs_err=err, bound_ms=b_ms, bound_by=b_by, bytes=s_bytes,
-            ms=time_ms(lambda: rgb_step(ck, None, *rest), queue_first=True),
-            plain_ms=time_ms(lambda: rgb_step_plain(cp, None, *rest), reps=5, warm=1))
-
-    full = f"{cam.width}x{cam.height}"
-    for name, levels in by_level.items():
-        entries[name] = dict(
-            name=name, route="cuda",
-            source="elasticfusion_tpu_torch/csrc/odometry_steps.cu",
-            replaces="elasticfusion_tpu/ops/gram_pallas.py:24",
-            library_ms=None, levels=levels, **levels[full])
+    for (name, _), e in step_entries("frame", by_level,
+                                     f"{cam.width}x{cam.height}").items():
+        entries[name] = e
 
     # --- SO(3) step on the arguments of the last pre-alignment iteration ---
     # tolerance: Gram blocks as above, at most 3 net count flips of 19200 (a
@@ -360,8 +467,8 @@ def phase_tracking_kernels(cam, cap_in, entries):
     # the 3-term warp is summed in another order than cuBLAS's)
     H, W = cam.height >> 2, cam.width >> 2
     tag = f"{W}x{H}"
-    check(("so3_step", H) in cap_in, f"the main path ran so3_step at {tag}")
-    a, kw = cap_in[("so3_step", H)]
+    check(("so3_step", "frame", H) in cap_in, f"the main path ran so3_step at {tag}")
+    a, kw = cap_in[("so3_step", "frame", H)]
     got, again = so3_step(*a, **kw), so3_step(*a, **kw)
     plain = so3_step_plain(*a, **kw)
     torch.cuda.synchronize()
@@ -547,10 +654,10 @@ WRAPPERS = {"gram_outer": gram_outer, "icp_step": icp_step,
 OFF_THE_PATH = {"gram_outer"}
 
 
-def run_sweep(cam, frames):
+def run_sweep(cam, frames, cfg=None):
     """The main path once: returns per-frame poses and counts, ms/frame of
     the timed frames, host reads per timed frame and the dense coverage."""
-    eng = Engine(engine_config(cam))
+    eng = Engine(cfg or engine_config(cam), device=DEV)
     poses, counts = [], []
     for i in range(N_WARM):
         d, r = frames[i]
@@ -574,12 +681,10 @@ def run_sweep(cam, frames):
                 dense=float(eng._dense_dev), capacity=eng.map.capacity, engine=eng)
 
 
-def phase_main_path(cam, frames, gt_poses):
-    print("== 4. main path: Engine.process_frame, 6 + 30 frames of the "
-          "640x480 sweep", flush=True)
-    global _BLOCKER
-    _BLOCKER = None          # phase 3's scratch must not count as the path's memory
-    torch.cuda.reset_peak_memory_stats()
+def counted(fn):
+    """`fn(tracker_reads)` with every kernel's count set to 0 just before it
+    and read just after it, the tracker's reads listed while it runs.
+    Returns (fn's result, launches by kernel, tracker reads)."""
     tracker_reads = []
     real_read_back = tracking_mod.read_back
     tracking_mod.read_back = lambda t: (tracker_reads.append(t.numel()),
@@ -587,41 +692,73 @@ def phase_main_path(cam, frames, gt_poses):
     for w in WRAPPERS.values():
         w.launches = 0
     try:
-        run = run_sweep(cam, frames)
+        out = fn(tracker_reads)
     finally:
         tracking_mod.read_back = real_read_back
-    launches = {k: w.launches for k, w in WRAPPERS.items()}
-    peak = torch.cuda.max_memory_allocated()
-    tracked = N_WARM + N_BENCH - 1
+    return out, {k: w.launches for k, w in WRAPPERS.items()}, tracker_reads
+
+
+def check_launched(what, launches, on_path, per=None):
+    """Every kernel of `on_path` launched in the run, every other not."""
     for k, n in launches.items():
-        if k in OFF_THE_PATH:
-            check(n == 0, f"{k} launched {n} times on the main path (off it)")
+        if k in on_path:
+            rate = f" ({n / per:.1f} per tracked frame)" if per else ""
+            check(n > 0, f"{what}: {k} launched {n} times{rate}")
         else:
-            check(n > 0, f"{k} launched {n} times on the main path "
-                         f"({n / tracked:.1f} per tracked frame)")
-    # one read per iteration and nothing else: every Gauss-Newton iteration is
-    # its three launches and one read, every SO(3) iteration one so3_step and
-    # one read, every tracked frame one read of the previous pose
+            check(n == 0, f"{what}: {k} launched {n} times (off this path)")
+
+
+def check_frame_reads(what, launches, tracker_reads, tracked, m2m_gn=0, m2m_runs=0):
+    """One tracker read per iteration and nothing else: every Gauss-Newton
+    iteration is its three launches and one read, every SO(3) iteration one
+    so3_step and one read, every tracked frame (and model-to-model run) one
+    read of the previous pose."""
     gn = launches["icp_step"]
     check(launches["rgb_residual"] == gn and launches["rgb_step"] == gn
-          and len(tracker_reads) == tracked + launches["so3_step"] + gn,
-          f"tracker reads {len(tracker_reads)} = {tracked} poses + "
-          f"{launches['so3_step']} SO(3) iterations (one so3_step each) + {gn} "
-          f"Gauss-Newton iterations, each of which launched icp_step, "
-          f"rgb_residual and rgb_step once")
+          and len(tracker_reads) == tracked + m2m_runs + launches["so3_step"] + gn,
+          f"{what}: tracker reads {len(tracker_reads)} = {tracked} poses + "
+          f"{m2m_runs} model-to-model poses + {launches['so3_step']} SO(3) iterations "
+          f"(one so3_step each) + {gn} Gauss-Newton iterations ({m2m_gn} of them "
+          f"model-to-model), each of which launched icp_step, rgb_residual and "
+          f"rgb_step once")
 
-    poses = np.stack(run["poses"])
-    check(bool(np.isfinite(poses).all()), "all poses finite")
-    T_est, T_gt = poses[-1], gt_poses[-1]
-    terr = float(np.linalg.norm(T_est[:3, 3] - T_gt[:3, 3]))
+
+def pose_error(T_est, T_gt):
+    """(translation error in m, rotation error in degrees)."""
     dR = T_est[:3, :3].T @ T_gt[:3, :3]
-    rerr = float(np.degrees(np.arccos(np.clip((np.trace(dR) - 1) / 2, -1, 1))))
+    return (float(np.linalg.norm(T_est[:3, 3] - T_gt[:3, 3])),
+            float(np.degrees(np.arccos(np.clip((np.trace(dR) - 1) / 2, -1, 1)))))
+
+
+FRAME_KERNELS = set(WRAPPERS) - OFF_THE_PATH
+
+
+def check_sweep(what, run, gt_poses):
+    poses = np.stack(run["poses"])
+    check(bool(np.isfinite(poses).all()), f"{what}: all poses finite")
+    terr, rerr = pose_error(poses[-1], gt_poses[-1])
     check(terr < MAX_TRANS_ERR_M and rerr < MAX_ROT_ERR_DEG,
-          f"final pose error {terr * 1e3:.2f} mm / {rerr:.3f} deg "
+          f"{what}: final pose error {terr * 1e3:.2f} mm / {rerr:.3f} deg "
           f"(bounds {MAX_TRANS_ERR_M * 1e3:.0f} mm / {MAX_ROT_ERR_DEG} deg)")
     worst = max(float(np.linalg.norm(p[:3, 3] - g[:3, 3]))
                 for p, g in zip(poses, gt_poses))
     print(f"  worst translation error over the sweep {worst * 1e3:.2f} mm", flush=True)
+    return poses
+
+
+def phase_main_path(cam, frames, gt_poses):
+    print("== 4. main path: Engine.process_frame, 6 + 30 frames of the "
+          "640x480 sweep", flush=True)
+    global _BLOCKER
+    _BLOCKER = None          # phase 3's scratch must not count as the path's memory
+    torch.cuda.reset_peak_memory_stats()
+    run, launches, tracker_reads = counted(lambda _: run_sweep(cam, frames))
+    peak = torch.cuda.max_memory_allocated()
+    tracked = N_WARM + N_BENCH - 1
+    check_launched("main path", launches, FRAME_KERNELS, per=tracked)
+    check_frame_reads("main path", launches, tracker_reads, tracked)
+
+    poses = check_sweep("main path", run, gt_poses)
     count = run["counts"][-1]
     check(SURFEL_BAND[0] <= count <= SURFEL_BAND[1] and count < run["capacity"],
           f"surfel count {count} inside {SURFEL_BAND}, capacity {run['capacity']}")
@@ -638,12 +775,219 @@ def phase_main_path(cam, frames, gt_poses):
     return launches, run
 
 
-def phase_profile(cam, frames, steady_ms: float) -> None:
+# --- the loop-closure path ---------------------------------------------------
+
+# (b): the there-and-back run of the reference package's local-closure test
+# (tests/test_closeloop.py:76-86) at 640x480: the same per-frame motion, 12
+# frames out and 12 back; thresholds that count pixels scaled by 16 (the
+# pixel ratio of 640x480 to 160x120: 2000 -> 32000 model-to-model inliers,
+# one node per 500 -> 8000 surfels)
+N_OUT = 12
+MAX_CLOSURE_END_ERR_M = 0.06
+
+
+def closure_config(cam: CameraConfig) -> EngineConfig:
+    return engine_config(cam).with_(
+        closeLoops=True, time_delta=6, icp_error_threshold=5e-4,
+        cov_threshold=1e-4, icp_count_threshold=32000, fern_min_age=1000,
+        def_graph_sample_rate=8000)
+
+
+def reloc_config(cam: CameraConfig) -> EngineConfig:
+    """(d): the relocalization test's thresholds (tests/test_pipeline.py:
+    113-125) at pipeline depth 0."""
+    return engine_config(cam).with_(
+        closeLoops=True, reloc_mode=True, fern_min_age=3, fern_inlier_count=100,
+        lost_inlier_relax=50, fern_threshold=0.12, fern_icp_error=2e-3)
+
+
+def there_and_back(scene, cam):
+    poses = [pose_from_xyzrpy(x=0.035 * s, yaw=0.012 * s)
+             for s in (i if i < N_OUT else 2 * N_OUT - i - 1 for i in range(2 * N_OUT))]
+    return [render_frame(scene[0], scene[1], T, cam) for T in poses], poses
+
+
+def run_closures(cam, frames):
+    """(b) once: per-frame poses and counts, the engine, and for every
+    accepted closure the host time of its frame's closure work (decision,
+    deformation solve, repair, synchronised) and its host reads."""
+    eng = Engine(closure_config(cam), device=DEV)
+    closures = []
+    real = Engine._close_loops
+
+    def timed(self, *args, **kwargs):
+        n0, r0, t0 = self.deforms + self.fern_deforms, _device.host_reads, time.perf_counter()
+        real(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        if self.deforms + self.fern_deforms > n0:
+            closures.append(dict(tick=args[0]["tick"],
+                                 ms=(time.perf_counter() - t0) * 1e3,
+                                 reads=_device.host_reads - r0))
+    Engine._close_loops = timed
+    poses, counts = [], []
+    try:
+        for i, (d, r) in enumerate(frames):
+            res = eng.process_frame(r, d, timestamp=i)
+            poses.append(res.T_wc)
+            counts.append(res.surfel_count)
+    finally:
+        Engine._close_loops = real
+    torch.cuda.synchronize()
+    return dict(poses=np.stack(poses), counts=counts, engine=eng, closures=closures,
+                deforms=(eng.deforms, eng.fern_deforms))
+
+
+def fern_views(scene, cam, T):
+    """Full-resolution predicted-view stand-in of a pose, on the card."""
+    d, r = render_frame(scene[0], scene[1], T, cam)
+    vmap = compute_vmap(
+        metricise_depth(torch.from_numpy(d.astype(np.float32)).to(DEV), 20.0), cam, 20.0)
+    return torch.from_numpy(r).to(DEV).to(torch.float32), vmap, compute_nmap(vmap)
+
+
+def run_ferns(scene, cam):
+    """(c): tests/test_closeloop.py:35-59 at 640x480 (80x60 fern views, the
+    default inlier gates of that resolution): six keyframe candidates, then
+    a revisit of the first."""
+    ferns = ferns_mod.Ferns(EngineConfig(camera=cam, fern_min_age=5), DEV)
+    added = sum(ferns.add_frame(*fern_views(scene, cam, pose_from_xyzrpy(
+        x=0.25 * i, yaw=0.10 * i)), pose_from_xyzrpy(x=0.25 * i, yaw=0.10 * i),
+        src_time=i + 1) for i in range(6))
+    T_re = pose_from_xyzrpy(x=0.01, yaw=0.004)
+    T_found, cons = ferns.find_frame(*fern_views(scene, cam, T_re), T_re,
+                                     time=100, lost=False)
+    return dict(added=added, closest=ferns.last_closest, T=T_found, T_re=T_re,
+                constraints=len(cons))
+
+
+def run_reloc(scene, cam):
+    """(d): tests/test_pipeline.py:105-155 at depth 0: 8 frames of map and
+    keyframes, 14 of blackout, then the first view again until recovered."""
+    eng = Engine(reloc_config(cam), device=DEV)
+    views = []
+    for i in range(8):
+        T = pose_from_xyzrpy(x=0.03 * i, yaw=0.01 * i)
+        d, r = render_frame(scene[0], scene[1], T, cam)
+        views.append((T, d, r))
+        eng.process_frame(r, d, timestamp=i)
+    lost_before = eng.lost
+    keyframes = len(eng.ferns.frames)
+    for i in range(14):
+        eng.process_frame(np.zeros_like(views[0][2]), np.zeros_like(views[0][1]),
+                          timestamp=100 + i)
+    lost_after = eng.lost
+    T0, d0, r0 = views[0]
+    for i in range(4):
+        eng.process_frame(r0, d0, timestamp=200 + i)
+        if not eng.lost:
+            break
+    return dict(lost_before=lost_before, lost_after=lost_after, keyframes=keyframes,
+                recovered_after=i + 1, lost=eng.lost,
+                err=float(np.linalg.norm(eng.T_wc[:3, 3] - T0[:3, 3])))
+
+
+def phase_closure(cam, frames, gt_poses, main_ms, entries):
+    """The loop-closure path at 640x480, each run read with the counts set to
+    0 just before it: (a) the sweep with closeLoops (the steady per-frame
+    cost of the default configuration: nothing closes), (b) local closures
+    on a there-and-back run, (c) fern retrieval, (d) relocalization; and the
+    tracking steps held against their plain versions on the arguments of the
+    model-to-model solve and of the fern ICP.  Returns the ms/frame of (a)."""
+    print("== 5. loop-closure path at 640x480", flush=True)
+    scene = make_scene(n_side=1400)
+
+    # (a)
+    cfg_a = engine_config(cam).with_(closeLoops=True)
+    run, launches, tracker_reads = counted(lambda _: run_sweep(cam, frames, cfg_a))
+    tracked = N_WARM + N_BENCH - 1
+    check_launched("(a) closeLoops sweep", launches, FRAME_KERNELS, per=tracked)
+    check_frame_reads("(a) closeLoops sweep", launches, tracker_reads, tracked)
+    poses = check_sweep("(a) closeLoops sweep", run, gt_poses)
+    again = run_sweep(cam, frames, cfg_a)
+    check(np.array_equal(poses, np.stack(again["poses"]))
+          and run["counts"] == again["counts"],
+          "(a) a second identical run gives bit-identical poses and counts")
+    keyframes = len(run["engine"].ferns.frames)
+    check(keyframes >= 1, f"(a) {keyframes} fern keyframes")
+    print(f"closeloops_ms_per_frame {run['ms']:.2f} (second run {again['ms']:.2f}; "
+          f"phase 4 without closeLoops {main_ms:.2f})", flush=True)
+    print(f"closeloops_host_syncs_per_frame {run['reads']:.1f}", flush=True)
+    print(f"closeloops_fern_keyframes {keyframes}", flush=True)
+
+    # (b), with the tracking steps' arguments kept per caller
+    frames_b, gt_b = there_and_back(scene, cam)
+    cap = {}
+
+    def drive_b(tracker_reads):
+        with StepRecorder(cap), CallerCounts(tracker_reads) as att:
+            return run_closures(cam, frames_b), att
+    (b, att_b), launches_b, reads_b = counted(drive_b)
+    check_launched("(b) there-and-back", launches_b, FRAME_KERNELS)
+    att_b.check_identity("(b) there-and-back")
+    check_frame_reads("(b) there-and-back", launches_b, reads_b, len(frames_b) - 1,
+                      m2m_gn=att_b.launches["m2m"]["icp_step"], m2m_runs=att_b.runs["m2m"])
+    eng = b["engine"]
+    n = eng.surfel_count
+    terr, _ = pose_error(b["poses"][-1], gt_b[-1])
+    check(b["deforms"][0] >= 1, f"(b) local closures: {b['deforms'][0]} "
+          f"(fern: {b['deforms'][1]}) at ticks {[c['tick'] for c in b['closures']]}")
+    check(bool(torch.isfinite(eng.map.pos[:, :n]).all()),
+          f"(b) all {n} surfel positions finite")
+    check(terr < MAX_CLOSURE_END_ERR_M,
+          f"(b) end-pose error {terr * 1e3:.1f} mm < {MAX_CLOSURE_END_ERR_M * 1e3:.0f} mm")
+    for c in b["closures"]:
+        print(f"  closure at tick {c['tick']}: host {c['ms']:.1f} ms, "
+              f"{c['reads']} host reads", flush=True)
+    print(f"  launches per caller: {att_b.launches} in {att_b.runs} runs", flush=True)
+    b2 = run_closures(cam, frames_b)
+    check(np.array_equal(b["poses"], b2["poses"]) and b["counts"] == b2["counts"]
+          and b["deforms"] == b2["deforms"],
+          "(b) a second identical run gives bit-identical poses, counts and deforms")
+    by_level = {"icp_step": {}, "rgb_residual": {}, "rgb_step": {}}
+    for lvl in range(3):
+        H, W = cam.height >> lvl, cam.width >> lvl
+        for name, lv in check_steps_at(cap, "m2m", H, W).items():
+            by_level[name][f"{W}x{H}"] = lv
+    for key, e in step_entries("m2m", by_level, f"{cam.width}x{cam.height}",
+                               dict(caller="m2m")).items():
+        entries[key] = dict(e, launches=att_b.launches["m2m"][key[0]])
+
+    # (c)
+    cap_c = {}
+
+    def drive_c(tracker_reads):
+        with StepRecorder(cap_c), CallerCounts(tracker_reads) as att:
+            return run_ferns(scene, cam), att
+    (c, att_c), launches_c, _ = counted(drive_c)
+    check_launched("(c) ferns", launches_c, {"icp_step"})
+    att_c.check_identity("(c) ferns")
+    terr, _ = pose_error(c["T"], c["T_re"]) if c["T"] is not None else (np.inf, 0)
+    check(c["added"] >= 2 and c["closest"] == 0 and terr < 0.02 and c["constraints"] > 10,
+          f"(c) {c['added']} keyframes, revisit retrieves keyframe {c['closest']}, "
+          f"fern ICP pose error {terr * 1e3:.1f} mm < 20 mm, {c['constraints']} constraints")
+    fh, fw = cam.height // 8, cam.width // 8
+    lv = check_steps_at(cap_c, "fern_icp", fh, fw, ("icp_step",))
+    for key, e in step_entries("fern_icp", {"icp_step": {f"{fw}x{fh}": lv["icp_step"]}},
+                               f"{fw}x{fh}", dict(caller="fern_icp")).items():
+        entries[key] = dict(e, launches=att_c.launches["fern_icp"]["icp_step"])
+
+    # (d)
+    d, launches_d, _ = counted(lambda _: run_reloc(scene, cam))
+    check_launched("(d) relocalization", launches_d, FRAME_KERNELS)
+    check(d["keyframes"] >= 1 and not d["lost_before"] and d["lost_after"],
+          f"(d) {d['keyframes']} keyframes; not lost before the blackout, lost after it")
+    check(not d["lost"] and d["err"] < 0.05,
+          f"(d) recovered after {d['recovered_after']} frames of the revisit, "
+          f"teleport pose error {d['err'] * 1e3:.1f} mm < 50 mm")
+    return run["ms"]
+
+
+def phase_profile(cam, frames, steady_ms: float, cfg=None, label="") -> None:
     """torch.profiler over five steady frames: device time by kernel."""
-    print("== profile: 5 frames", flush=True)
+    print(f"== profile: 5 frames{label}", flush=True)
     from torch.profiler import ProfilerActivity, profile
 
-    eng = Engine(engine_config(cam))
+    eng = Engine(cfg or engine_config(cam), device=DEV)
     for i in range(8):
         eng.process_frame(frames[i][1], frames[i][0], timestamp=i)
     torch.cuda.synchronize()
@@ -690,14 +1034,18 @@ def main() -> None:
         print("stopped after phase 3 as asked", flush=True)
         return
     launches, run = phase_main_path(cam, frames, gt_poses)
+    closure_ms = phase_closure(cam, frames, gt_poses, run["ms"], entries)
     if args.profile:
         phase_profile(cam, frames, run["ms"])
+        phase_profile(cam, frames, closure_ms, engine_config(cam).with_(closeLoops=True),
+                      " with closeLoops")
 
-    print("== 5. kernels", flush=True)
+    print("== 6. kernels", flush=True)
     kernels = []
-    for name, e in entries.items():
+    for e in entries.values():
         e = dict(e)
-        e["launches"] = launches[name]
+        if "caller" not in e:            # the callers' runs set their own
+            e["launches"] = launches[e["name"]]
         e["kernel_ms"] = e["ms"]
         kernels.append(e)
     print(f"total_seconds {time.perf_counter() - t_start:.1f}", flush=True)

@@ -1,7 +1,7 @@
 """State carried across packages: numpy ⇄ the port's NamedTuples of tensors.
 
-The system has no weights; the surfel map and the carried prediction are its
-state.  Every `*_from_numpy` takes a dict of arrays keyed by the reference
+The system has no weights; the surfel map, the carried prediction, the
+deformation graph and the fern keyframe DB are its state.  Every `*_from_numpy` takes a dict of arrays keyed by the reference
 package's NamedTuple field names (or any object with `_asdict()`, after
 `np.asarray` on its fields), so both packages can be started from the same
 state; every `*_to_numpy` gives such a dict back.
@@ -10,17 +10,20 @@ state; every `*_to_numpy` gives such a dict back.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Mapping, NamedTuple, Tuple
+from typing import Any, Dict, Iterable, Mapping, NamedTuple, Tuple
 
 import numpy as np
 import torch
 
 from ._device import DeviceLike, resolve_device
 from .config import CameraConfig, EngineConfig
+from .deformation import GraphState
+from .ferns import FernFrame, Ferns
 from .ops.splat import IndexPrediction, Prediction
 from .surfels import SurfelMap
 
-_INT_FIELDS = {"count": torch.int32, "index": torch.int32}
+_INT_FIELDS = {"count": torch.int32, "index": torch.int32,
+               "n_nodes": torch.int32, "nbr": torch.int64}
 
 
 def config_from_dict(d: Mapping[str, Any]) -> EngineConfig:
@@ -110,3 +113,33 @@ def engine_state_to_numpy(s: EngineState) -> Dict[str, Any]:
         "pred": prediction_to_numpy(s.pred),
         "fill": tuple(host(t) for t in s.fill),
     }
+
+
+def graph_state_from_numpy(src, device: DeviceLike = None) -> GraphState:
+    """A deformation graph from the reference package's `GraphState` fields
+    (`nbr` becomes int64, `n_nodes` a 0-d int32)."""
+    return _from_numpy(GraphState, src, device)
+
+
+def graph_state_to_numpy(g: GraphState) -> Dict[str, np.ndarray]:
+    return _to_numpy(g)
+
+
+def load_fern_db(ferns: Ferns, frames: Iterable[Any]) -> None:
+    """Append keyframes to a `Ferns` DB (host records and device code rows).
+    Each item holds the reference package's `FernFrame` fields (codes, good
+    codes, pose, time, decimated views), as a dict or as that dataclass."""
+    for fr in frames:
+        d = dataclasses.asdict(fr) if dataclasses.is_dataclass(fr) else dict(fr)
+        f = FernFrame(
+            id=len(ferns.frames),
+            codes=np.asarray(d["codes"], np.uint8).reshape(-1),
+            good_codes=int(d["good_codes"]),
+            T_wc=np.asarray(d["T_wc"], np.float64).copy(),
+            src_time=int(d["src_time"]),
+            rgb=np.asarray(d["rgb"], np.uint8),
+            verts=np.asarray(d["verts"], np.float32),
+            norms=np.asarray(d["norms"], np.float32),
+        )
+        ferns.frames.append(f)
+        ferns._db_upload(f.id, f.codes, f.good_codes, f.src_time)

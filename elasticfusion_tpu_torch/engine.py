@@ -1,18 +1,29 @@
 """Engine facade — the `ElasticFusion` class (Core/ElasticFusion.{h,cpp}) of
 the PyTorch/CUDA port.
 
-`process_frame` mirrors the original pipeline (ElasticFusion.cpp:270-607)
-without loop closure: preprocess -> frame-to-model tracking -> predictIndices
--> fuse -> clean -> predict + fill-in.  Frames are finished synchronously
-inside `process_frame`: one packed device→host read per frame on top of the
-tracker's one read per Gauss-Newton iteration (`_device.host_reads` counts
-them).
+`process_frame` mirrors the original pipeline (ElasticFusion.cpp:270-607):
+preprocess -> frame-to-model tracking -> [tracking gates] -> predictIndices
+-> fuse -> clean -> predict + fill-in, then, with `closeLoops`, fern encoding
+and retrieval scoring, the deformation node sample and — while the map holds
+an inactive surfel — the INACTIVE prediction and the model-to-model solve.
+The loop-closure *decisions* (fern retrieval, deformation Gauss-Newton
+acceptance) and the relocalization state machine run on the host, and an
+accepted closure is applied by `_apply_closure`.
 
-Not ported yet — each raises `NotImplementedError` when asked for: loop
-closure (`closeLoops`), multi-device maps (`mesh_shape`), host/device
-pipelining (`pipeline_depth > 0`), relocalization (`reloc_mode`), externally
-supplied poses after the first frame (`in_T_wc`), the u16 fixed-point tables
-(`fx16_tables`) and checkpoint restore.
+Frames are finished synchronously inside `process_frame`.  Device→host reads
+(`_device.host_reads` counts them) per frame: the tracker's (one per
+Gauss-Newton or SO(3) iteration), one of the packed finish vector, and with
+`closeLoops` one of the "inactive surfel exists" predicate plus, when the
+model-to-model solve runs, its tracker's reads.  Where the reference package
+decides on its device (`lax.cond`), this port decides on the host from values
+the host already holds: the tracking gates from the tracker's last read, the
+model-to-model skip from that one predicate read.
+
+Not ported yet — each raises `NotImplementedError` when asked for:
+multi-device maps (`mesh_shape`), host/device pipelining
+(`pipeline_depth > 0`), externally supplied poses after the first frame
+(`in_T_wc`), the u16 fixed-point tables (`fx16_tables`) and checkpoint
+restore.
 """
 
 from __future__ import annotations
@@ -25,6 +36,8 @@ import torch
 
 from ._device import DeviceLike, read_back, resolve_device
 from .config import EngineConfig
+from .deformation import Deformation, _sample_every, apply_graph_to_surfels
+from .ferns import Ferns, fern_encode_device, fern_score_device
 from .ops.fillin import fill_all
 from .ops.fuse import FuseStats, clean, fuse
 from .ops.preprocess import (
@@ -33,17 +46,21 @@ from .ops.preprocess import (
     pyr_down_intensity,
     rgb_to_intensity,
 )
-from .ops.splat import Prediction, combined_predict, predict_indices
+from .ops.splat import Prediction, combined_predict, predict_indices, synthesize_depth
 from .se3 import invert, np_orthonormalize, se3_log_norm
 from .surfels import SurfelMap, init_map_from_frame
 from .tracking import (
     OdometryInputs,
+    TrackingHost,
     TrackingResult,
     build_current_frame_pyramids,
+    build_current_model_pyramids,
     build_model_pyramids,
     get_incremental_transformation,
 )
 from .utils.stopwatch import Stopwatch
+
+CONS_SAMPLE = 20  # constraint-source subsampling (ElasticFusion.cpp:62)
 
 # ---------------------------------------------------------------------------
 # per-frame stages
@@ -178,6 +195,118 @@ def slam_step(
     return m, T, so3_cur, (vtx, nrm, img), pred, dense, res
 
 
+def _decimate_views(img, vtx, nrm, factor: int):
+    """Nearest decimation at output-pixel centres for the fern views (the
+    reference's Resize pass, Resize.cpp:69-146), on the device."""
+    off = factor // 2
+    return (
+        img[off::factor, off::factor],
+        vtx[:, off::factor, off::factor],
+        nrm[:, off::factor, off::factor],
+    )
+
+
+def _sample_nodes(m: SurfelMap, rate: int):
+    """Every rate-th surfel's (position [M,3], init time [M]) — the
+    deformation-graph node sample (sample.geom:33-39)."""
+    return _sample_every(m.pos, m.init_t, m.count, rate)[:2]
+
+
+def _empty_tracking_result(device) -> TrackingResult:
+    z = torch.zeros((), dtype=torch.float32, device=device)
+    return TrackingResult(
+        T_curr=torch.eye(4, device=device),
+        icp_error=z, icp_count=z, rgb_error=z, rgb_count=z,
+        so3_error=z, so3_count=z,
+        A=torch.zeros((6, 6), device=device), b=torch.zeros((6,), device=device),
+    )
+
+
+def _model_to_model(
+    new_vertex, new_normal, new_image,
+    old_vertex, old_normal, old_image,
+    T_wc, cfg: EngineConfig,
+) -> TrackingResult:
+    """modelToModel odometry: align the ACTIVE prediction against the INACTIVE
+    one (ElasticFusion.cpp:462-471; icpWeight=10, no SO3)."""
+    m2m_cfg = cfg.with_(so3=False, icp_weight=10.0)
+    vmaps_c, nmaps_c, images_c, depths_c = build_current_model_pyramids(
+        new_vertex, new_normal, new_image, m2m_cfg
+    )
+    vmaps_g, nmaps_g, images_m, depths_m = build_model_pyramids(
+        old_vertex, old_normal, old_image, T_wc, m2m_cfg
+    )
+    inputs = OdometryInputs(
+        vmaps_curr=vmaps_c, nmaps_curr=nmaps_c,
+        vmaps_prev_g=vmaps_g, nmaps_prev_g=nmaps_g,
+        last_images=images_m, next_images=images_c,
+        last_depths=depths_m, next_depths=depths_c,
+        so3_last_image=images_c[m2m_cfg.num_pyramid_levels - 1], T_prev=T_wc,
+    )
+    return get_incremental_transformation(inputs, m2m_cfg)
+
+
+def _tracking_ok(host: TrackingHost, cfg: EngineConfig) -> bool:
+    """Tracking-failure gates (cpp:326-344) in float32, as the reference
+    package evaluates them on its device: the ICP error under its limit and
+    every diagonal entry of (A + 1e-12 I)^-1 under the covariance limit."""
+    f32 = np.float32
+    A = np.asarray(host.A, f32) + np.eye(6, dtype=f32) * f32(1e-12)
+    try:
+        cov = np.linalg.inv(A)
+    except np.linalg.LinAlgError:
+        return False
+    return (bool(f32(host.icp_error) < f32(cfg.reloc_icp_error))
+            and bool(np.all(np.diag(cov) < f32(cfg.reloc_cov_threshold))))
+
+
+def _inactive_exists(m: SurfelMap, tick, cfg: EngineConfig) -> torch.Tensor:
+    """Whether any live confident surfel has left the active time window."""
+    live = torch.arange(m.capacity, device=m.pos.device) < m.count
+    return torch.any(live & (m.conf >= cfg.confidence_threshold)
+                     & (m.last_t <= tick - cfg.time_delta))
+
+
+def _closure_inputs(m: SurfelMap, T, T_host, pred: Prediction, fill, tick, fern,
+                    cfg: EngineConfig):
+    """What the host's loop-closure decisions read of a frame: the fern views,
+    their codes and retrieval scores against the keyframe DB
+    (Ferns.cpp:108-228), the deformation node sample (cpp:591-597) and — only
+    while an inactive surfel exists, which costs one read to know — the
+    INACTIVE prediction and the model-to-model solve against it
+    (cpp:447-511)."""
+    cam = cfg.camera
+    vtx, nrm, img = fill
+    fern_flat, fern_rgbd, db_codes, db_good, db_time, db_count = fern
+    views = _decimate_views(img, vtx, nrm, cfg.fern_pyramid_factor)
+    codes, good = fern_encode_device(views[0], views[1], fern_flat, fern_rgbd)
+    scores = fern_score_device(codes, good, db_codes, db_good, db_time, db_count,
+                               tick, cfg.fern_min_age)
+    node_pos, node_t = _sample_nodes(m, cfg.def_graph_sample_rate)
+
+    hs, ws = -(-cam.height // CONS_SAMPLE), -(-cam.width // CONS_SAMPLE)
+    if bool(read_back(_inactive_exists(m, tick, cfg))):
+        old_pred = combined_predict(
+            m, T, cam, 0.0, tick - cfg.time_delta, cfg.time_delta,
+            cfg.confidence_threshold, cfg.max_depth_processed,
+        )
+        inact_px = torch.sum(old_pred.depth > 0).to(torch.int32)
+        m2m = _model_to_model(
+            pred.vertex, pred.normal, pred.image,
+            old_pred.vertex, old_pred.normal, old_pred.image, T_host, cfg,
+        )
+        cons_ot = old_pred.time[::CONS_SAMPLE, ::CONS_SAMPLE]
+    else:
+        m2m = _empty_tracking_result(T.device)
+        inact_px = torch.zeros((), dtype=torch.int32, device=T.device)
+        cons_ot = torch.zeros((hs, ws), device=T.device)
+    return dict(
+        views=views, codes=codes, good=good, scores=scores,
+        node_pos=node_pos, node_t=node_t, m2m=m2m, inact_px=inact_px,
+        cons_pv=pred.vertex[:, ::CONS_SAMPLE, ::CONS_SAMPLE], cons_ot=cons_ot,
+    )
+
+
 def _frame_main(
     m: SurfelMap,
     T_prev,                                  # (4,4) f32 carried pose
@@ -189,18 +318,23 @@ def _frame_main(
     tick, max_time,                          # f32 scalars
     lost: bool,
     weight_mult: float,
+    fern,                                    # fern tables + keyframe DB, or None
     cfg: EngineConfig,
     do_compact: bool = True,
 ):
-    """The whole closure-free SLAM frame (ElasticFusion.cpp:270-607):
+    """The whole SLAM frame (ElasticFusion.cpp:270-607 minus the host-decided
+    loop-closure applications):
 
       preprocess -> frame-to-model tracking (against the carried prediction
       or its fill-in, selected on the device by denseEnough, cpp:256-268,
-      303-315) -> velocity fusion weight (cpp:371-383) -> fuse -> clean ->
-      end-of-frame combinedPredict + FillIn (cpp:599).
+      303-315) -> velocity fusion weight (cpp:371-383) -> tracking gates
+      (cpp:326-344, reloc_mode) -> fuse -> clean (unless lost or the gates
+      fail) -> end-of-frame combinedPredict + FillIn (cpp:599) -> with
+      `fern`: `_closure_inputs`.
 
     Like the reference `_frame_main` it runs `clean` on the exact float32
-    patch whatever `cfg.fx16_clean` says."""
+    patch whatever `cfg.fx16_clean` says.  The closure inputs consume the
+    END-of-frame prediction, as in the reference package."""
     raw_m, filt_m = _preprocess(depth_mm, cfg)
 
     use_fill = (dense_prev < 0.75) | bool(cfg.frame_to_frame_rgb)
@@ -219,7 +353,9 @@ def _frame_main(
     )
     weighting = torch.clamp(1.0 - w / 0.01, min=0.5) * weight_mult
 
-    if cfg.rgb_only or lost:
+    track_ok = _tracking_ok(res.host, cfg) if cfg.reloc_mode else True
+
+    if cfg.rgb_only or lost or not track_ok:
         z = torch.zeros((), dtype=torch.int32, device=T.device)
         stats = FuseStats(matched=z, added=z, count=m.count)
     else:
@@ -229,24 +365,109 @@ def _frame_main(
     # end-of-frame predict (cpp:599) — next frame's tracking target
     pred, vtx, nrm, img, dense = _predict(
         m, T, tick, max_time, filt_m, rgb, lost, cfg)
-
-    # everything `_finish` reads, as ONE f32 vector (counts < 2^24 are exact)
-    finish_vec = torch.cat([
-        T.reshape(-1), res.icp_error[None], res.icp_count[None],
-        stats.count.to(torch.float32)[None],
-    ])
-    return dict(
+    out = dict(
         map=m, T=T, so3=so3_cur, res=res, pred=pred, fill=(vtx, nrm, img),
-        dense=dense, stats=stats, finish_vec=finish_vec,
+        dense=dense, stats=stats, filt=filt_m,
     )
+
+    # everything `_finish` reads, as ONE f32 vector in the reference package's
+    # layout (counts < 2^24 and 4-bit codes are exact in f32)
+    f32 = torch.float32
+    fin = [
+        T.reshape(-1), res.icp_error[None], res.icp_count[None],
+        torch.full((1,), float(track_ok), device=T.device),
+        stats.count.to(f32)[None], m.count.to(f32)[None],
+    ]
+    if fern is not None:
+        c = _closure_inputs(m, T, torch.from_numpy(res.host.T), pred,
+                            (vtx, nrm, img), tick, fern, cfg)
+        out.update(c)
+        add_min, best_id, best_d, block_hd = c["scores"]
+        m2m = c["m2m"]
+        fin += [
+            c["codes"].to(f32), c["good"].to(f32)[None],
+            m2m.T_curr.reshape(-1), m2m.icp_error[None], m2m.icp_count[None],
+            m2m.A.reshape(-1), c["inact_px"].to(f32)[None],
+            c["cons_pv"].reshape(-1), c["cons_ot"].reshape(-1),
+            add_min[None], best_id.to(f32)[None], best_d[None], block_hd[None],
+        ]
+    out["finish_vec"] = torch.cat(fin)
+    return out
+
+
+def _apply_closure(
+    m: SurfelMap,
+    graph,                 # deformation.GraphState (optimised)
+    T_fix,                 # (4,4) f32 world-frame left-correction
+    closure_tick: float,   # surfels with init_t >= this get the rigid fix
+    T_new,                 # (4,4) f32 corrected pose, T_fix @ carried pose
+    tick_now: float, max_time: float, lost: bool,
+    filt_m, rgb,           # latest frame (for the re-predict fill-in)
+    fern_flat, fern_rgbd,
+    cfg: EngineConfig,
+    fern_accepted: bool,
+):
+    """Loop-closure repair (ElasticFusion.cpp:410-534 + clean's graph
+    application, copy_unstable.vert:132-321): (a) deform every surfel older
+    than the closure frame through the optimised graph and apply the rigid
+    correction to those fused at or after it, (b) unless a fern closed the
+    loop, refresh timestamps against the synthesized inactive depth
+    (cpp:561-570), (c) re-clean, (d) regenerate the carried prediction and
+    fern state at the corrected pose."""
+    cam = cfg.camera
+    H, W = cam.height, cam.width
+    deformed_pos, deformed_nrm = apply_graph_to_surfels(m, graph)
+    recent = m.init_t >= closure_tick
+    Rf, tf = T_fix[:3, :3], T_fix[:3, 3]
+    new_pos = torch.where(recent[None], Rf @ m.pos + tf[:, None], deformed_pos)
+    new_nrm = torch.where(recent[None], Rf @ m.normal, deformed_nrm)
+    m1 = m._replace(pos=new_pos, normal=new_nrm)
+
+    if not fern_accepted:
+        # time=tick, maxTime=tick-timeDelta, timeDelta=uint16-max (cpp:561-569),
+        # rendered from the map before the deformation, as the reference does
+        depth_synth = synthesize_depth(
+            m, T_new, cam, tick_now, tick_now - cfg.time_delta, 65535,
+            cfg.confidence_threshold, cfg.max_depth_processed,
+        )
+        # timestamp refresh of deformed surfels (copy_unstable.vert:305-321)
+        t = T_new[:3, 3]
+        lp2 = T_new[:3, :3].T @ (m1.pos - t[:, None])
+        sz = torch.where(torch.abs(lp2[2]) > 1e-12, lp2[2], torch.ones_like(lp2[2]))
+        x2 = lp2[0] * cam.fx / sz + cam.cx
+        y2 = lp2[1] * cam.fy / sz + cam.cy
+        inb = ((lp2[2] > 0) & (lp2[2] < cfg.max_depth_processed)
+               & (x2 > 0) & (y2 > 0) & (x2 < W) & (y2 < H))
+        flat = (torch.clamp(y2.to(torch.int32), 0, H - 1).to(torch.int64) * W
+                + torch.clamp(x2.to(torch.int32), 0, W - 1))
+        d = depth_synth.reshape(-1)[flat]
+        refresh = ((m1.conf > cfg.confidence_threshold) & ~recent & inb
+                   & (d > 0) & (lp2[2] < d + 0.1))
+        m1 = m1._replace(last_t=torch.where(
+            refresh, torch.full_like(m1.last_t, tick_now), m1.last_t))
+
+    pidx = predict_indices(
+        m1, T_new, cam, tick_now, cfg.time_delta, cfg.max_depth_processed)
+    m2 = clean(
+        m1, pidx, T_new, tick_now, cam, cfg.confidence_threshold,
+        cfg.time_delta, cfg.max_depth_processed, cfg.unstable_age,
+    )
+    pred, vtx, nrm, img, dense = _predict(
+        m2, T_new, tick_now, max_time, filt_m, rgb, lost, cfg)
+    views = _decimate_views(img, vtx, nrm, cfg.fern_pyramid_factor)
+    codes, good = fern_encode_device(views[0], views[1], fern_flat, fern_rgbd)
+    return dict(map=m2, pred=pred, fill=(vtx, nrm, img), dense=dense,
+                views=views, codes=codes, good=good)
 
 
 def _predict_only(m: SurfelMap, T_wc, tick, max_time, depth_filt_m, rgb, lost,
                   cfg: EngineConfig):
-    """predict() + fill-in without fusion (first frame)."""
+    """predict() + fill-in + fern views without fusion (first frame,
+    relocalization teleport)."""
     pred, vtx, nrm, img, dense = _predict(
         m, T_wc, tick, max_time, depth_filt_m, rgb, lost, cfg)
-    return pred, (vtx, nrm, img), dense
+    views = _decimate_views(img, vtx, nrm, cfg.fern_pyramid_factor)
+    return pred, (vtx, nrm, img), dense, views
 
 
 def _coarse_intensity(rgb, cfg: EngineConfig):
@@ -293,15 +514,10 @@ class Engine:
 
     def __init__(self, cfg: EngineConfig = EngineConfig(),
                  device: DeviceLike = None):
-        if cfg.closeLoops:
-            raise _unported("closeLoops=True (ferns, model-to-model, deformation)",
-                            "M8-M9")
         if cfg.mesh_shape is not None:
             raise _unported("mesh_shape (multi-device map)", "M11")
         if cfg.pipeline_depth > 0:
             raise _unported("pipeline_depth > 0", "M7")
-        if cfg.reloc_mode:
-            raise _unported("reloc_mode", "M7")
         if cfg.fx16_tables:
             raise _unported("fx16_tables", "M12")
         self.cfg = cfg
@@ -309,11 +525,16 @@ class Engine:
         self.tick = 1                             # starts at 1 (EF.cpp:55)
         self.T_wc = np.eye(4)                     # f64 host pose
         self.lost = False
-        # tick-keyed pose log + the parallel timestamp log (EF.cpp:588-589)
+        self.tracking_count = 0
+        self.last_frame_recovery = False
+        # tick-keyed pose log (deformations rewrite it) + the parallel
+        # timestamp log (EF.cpp:588-589)
         self.tick_poses: List[Tuple[int, np.ndarray]] = []
         self.pose_times: List[int] = []
         self.map: Optional[SurfelMap] = None
         self.stopwatch = Stopwatch()
+        self.deforms = 0
+        self.fern_deforms = 0
         # carried device state
         self._T_f32 = None          # (4,4) f32 pose, kept on the host: the
                                     # tracker reads it there and uploads it
@@ -321,10 +542,34 @@ class Engine:
         self._pred = None           # Prediction from end-of-last-frame predict()
         self._fill = None           # (vertex, normal, image) fill-in maps
         self._dense_dev = None      # f32 scalar: last predict coverage
+        self._views = None          # decimated (img, vtx, nrm) of last predict
+        self._codes = None          # fern codes of last predict
+        self._good = None
+        self._last_frame = None     # (filtered depth, rgb) of the latest frame
         self._count_finished = 0    # exact count of the last finished frame
         self._last_icp_error = 0.0
         self._last_icp_count = 0.0
+        self._last_tracking_ok = True
         self._last_fused = False
+        # loop-closure subsystems (ferns.py / deformation.py)
+        self.ferns: Optional[Ferns] = None
+        self.local_deformation: Optional[Deformation] = None
+        self.global_deformation: Optional[Deformation] = None
+        self.relative_cons: list = []
+        if cfg.closeLoops:
+            self.enable_loop_closure()
+
+    def enable_loop_closure(self) -> None:
+        """Construct the fern DB and the two deformations (local graph sampled
+        from the map, global resampled 1/5 — ElasticFusion.h:259-266)."""
+        cfg, dev = self.cfg, self.device
+        self.ferns = Ferns(cfg, dev)
+        self.local_deformation = Deformation(
+            node_capacity=cfg.max_deformation_nodes,
+            sample_rate=cfg.def_graph_sample_rate, device=dev)
+        self.global_deformation = Deformation(
+            node_capacity=cfg.max_deformation_nodes,
+            sample_rate=cfg.def_graph_sample_rate, device=dev)
 
     # -- public knobs ---------------------------------------------------------
     @property
@@ -333,7 +578,7 @@ class Engine:
 
     @property
     def poses(self) -> List[Tuple[int, np.ndarray]]:
-        """Timestamped trajectory."""
+        """Timestamped (possibly deformation-corrected) trajectory."""
         return [(ts, T) for ts, (_, T) in zip(self.pose_times, self.tick_poses)]
 
     def flush(self) -> None:
@@ -341,6 +586,12 @@ class Engine:
 
     def restore_checkpoint(self, path: str) -> None:
         raise _unported("checkpoint restore", "M10")
+
+    def _fern_inputs(self):
+        """Fern tables and keyframe DB handed to the frame, or None."""
+        if self.ferns is None:
+            return None
+        return (*self.ferns.encode_tables(), *self.ferns.device_db())
 
     @torch.no_grad()
     def process_frame(
@@ -370,6 +621,13 @@ class Engine:
 
         self._maybe_grow()
 
+        # the recovery flag belongs to this frame: _reloc_update reads it when
+        # the frame finishes (the whole-map render it asks for already
+        # happened in _teleport's _regenerate_carried)
+        rec = dict(tick=self.tick, timestamp=timestamp, lost_at_dispatch=self.lost,
+                   recovery=self.last_frame_recovery)
+        self.last_frame_recovery = False
+
         sw.tick("frame")
         tick_dev = torch.tensor(float(self.tick), device=self.device)
         out = _frame_main(
@@ -377,7 +635,8 @@ class Engine:
             self._pred.vertex, self._pred.normal, self._pred.image,
             self._fill[0], self._fill[1], self._fill[2],
             self._dense_dev, depth_d, rgb_d,
-            tick_dev, tick_dev, self.lost, float(weight_multiplier), cfg,
+            tick_dev, tick_dev, self.lost, float(weight_multiplier),
+            self._fern_inputs(), cfg,
             do_compact=(self.tick % cfg.compact_every == 0),
         )
         sw.tock("frame")
@@ -387,11 +646,19 @@ class Engine:
         self._pred = out["pred"]
         self._fill = out["fill"]
         self._dense_dev = out["dense"]
+        self._last_frame = (out["filt"], rgb_d)
+        if cfg.closeLoops:
+            self._views = out["views"]
+            self._codes, self._good = out["codes"], out["good"]
 
         sw.tick("finish")
-        self._finish(self.tick, timestamp, out)
+        rec["out"] = out
+        self._finish(rec)
         sw.tock("finish")
-        self.tick += 1
+        # the tick does not advance while lost (the reference advances it
+        # before finishing the frame; its closures use the frame's own tick)
+        if not rec["lost_at_dispatch"]:
+            self.tick += 1
         sw.tock("Run")
         return self._result()
 
@@ -413,13 +680,39 @@ class Engine:
             self.T_wc = np.asarray(in_T_wc, np.float64)
         self._T_f32 = torch.from_numpy(self.T_wc.astype(np.float32))
         one = torch.tensor(1.0, device=self.device)
-        self._pred, self._fill, self._dense_dev = _predict_only(
+        self._pred, self._fill, self._dense_dev, self._views = _predict_only(
             self.map, self._T_f32.to(self.device), one, one, filt_m, rgb_d, False, cfg,
         )
+        self._last_frame = (filt_m, rgb_d)
+        if self.ferns is not None:
+            self._codes, self._good = fern_encode_device(
+                self._views[0], self._views[1], *self.ferns.encode_tables())
         self._count_finished = int(read_back(self.map.count))
         self.tick_poses.append((1, self.T_wc.copy()))
         self.pose_times.append(int(timestamp))
+        if self.local_deformation is not None:
+            self.local_deformation.set_sampled(
+                *_sample_nodes(self.map, cfg.def_graph_sample_rate), self.map.count)
+            self.global_deformation.sample_graph_from(self.local_deformation)
         self.tick = 2
+
+    def _regenerate_carried(self):
+        """Re-render the carried prediction at the host pose from the latest
+        frame.  Right after a fern teleport the reference renders the WHOLE
+        map (combinedPredict time=0, maxTime=tick, ElasticFusion.cpp:624-631),
+        so the confirming frame has a full prediction to track against."""
+        cfg = self.cfg
+        filt_m, rgb_d = self._last_frame
+        self._T_f32 = torch.from_numpy(self.T_wc.astype(np.float32))
+        tick = float(self.tick)
+        pred_time = 0.0 if self.last_frame_recovery else tick
+        self._pred, self._fill, self._dense_dev, self._views = _predict_only(
+            self.map, self._T_f32.to(self.device), pred_time, tick, filt_m, rgb_d,
+            self.lost, cfg,
+        )
+        if self.ferns is not None:
+            self._codes, self._good = fern_encode_device(
+                self._views[0], self._views[1], *self.ferns.encode_tables())
 
     def _maybe_grow(self):
         """Grow to the next capacity bucket before the tail can overflow,
@@ -438,7 +731,7 @@ class Engine:
     def _result(self) -> FrameResult:
         return FrameResult(
             T_wc=self.T_wc.copy(),
-            tracking_ok=True,
+            tracking_ok=self._last_tracking_ok,
             lost=self.lost,
             icp_error=self._last_icp_error,
             icp_count=self._last_icp_count,
@@ -446,15 +739,207 @@ class Engine:
             count_dev=None if self.map is None else self.map.count,
         )
 
-    def _finish(self, tick: int, timestamp: int, out) -> None:
-        """Host-side completion of one frame: one packed device read, pose log."""
+    def _finish(self, rec) -> None:
+        """Host-side completion of one frame: one packed device read, pose log,
+        relocalization state machine, fern DB, loop-closure decisions."""
+        cfg = self.cfg
+        out = rec["out"]
         vec32 = read_back(out["finish_vec"])
         self._T_f32 = torch.from_numpy(vec32[0:16].reshape(4, 4).copy())
         vec = vec32.astype(np.float64)
         self.T_wc = np_orthonormalize(vec[0:16].reshape(4, 4))
         self._last_icp_error = float(vec[16])
         self._last_icp_count = float(vec[17])
-        self._count_finished = int(vec[18])
-        self._last_fused = (not self.cfg.rgb_only) and not self.lost
-        self.tick_poses.append((tick, self.T_wc.copy()))
-        self.pose_times.append(int(timestamp))
+        tok = vec[18] != 0.0
+        self._count_finished = int(vec[19])
+
+        tracking_ok = True
+        if cfg.reloc_mode:
+            tracking_ok = self._reloc_update(bool(tok), rec["recovery"])
+        self._last_tracking_ok = tracking_ok
+        self._last_fused = (
+            (not cfg.rgb_only) and bool(tok) and not rec["lost_at_dispatch"])
+
+        self.tick_poses.append((rec["tick"], self.T_wc.copy()))
+        self.pose_times.append(int(rec["timestamp"]))
+
+        if self.local_deformation is None:
+            return
+        # deformation node sample of this frame's map state (cpp:591-597)
+        self.local_deformation.set_sampled(
+            out["node_pos"], out["node_t"], out["stats"].count)
+        self.global_deformation.sample_graph_from(self.local_deformation)
+
+        F = self.ferns.num
+        H, W = cfg.camera.height, cfg.camera.width
+        hs, ws = -(-H // CONS_SAMPLE), -(-W // CONS_SAMPLE)
+        o = 21
+        codes = vec[o:o + F].astype(np.int32); o += F
+        good = int(vec[o]); o += 1
+        m2m_T = vec[o:o + 16].reshape(4, 4); o += 16
+        m2m_err, m2m_cnt = vec[o], vec[o + 1]; o += 2
+        m2m_A = vec[o:o + 36].reshape(6, 6); o += 36
+        inact_px = int(vec[o]); o += 1
+        cons_pv = vec[o:o + 3 * hs * ws].reshape(3, hs, ws); o += 3 * hs * ws
+        cons_ot = vec[o:o + hs * ws].reshape(hs, ws); o += hs * ws
+        add_min, best_id, best_d, block_hd = vec[o:o + 4]
+        self._close_loops(
+            rec, float(best_id), float(best_d), float(block_hd), codes, good,
+            m2m_T, float(m2m_err), float(m2m_cnt), m2m_A, inact_px,
+            cons_pv, cons_ot,
+        )
+        # Ferns::addFrame at the end of the frame (cpp:601-604), not while lost
+        if not rec["lost_at_dispatch"] and not self.lost:
+            self.ferns.add_frame_scored(
+                float(add_min), codes, good, out["views"], self.T_wc, rec["tick"])
+
+    def _reloc_update(self, tracking_ok: bool, was_recovery: bool) -> bool:
+        """Relocalization state machine (ElasticFusion.cpp:326-365).
+        `was_recovery` marks the frame right after a fern teleport: one
+        further well-conditioned frame confirms recovery (cpp:348-364)."""
+        if not self.lost:
+            if not tracking_ok:
+                self.tracking_count += 1
+                if self.tracking_count > 10:
+                    self.lost = True
+                return False
+            self.tracking_count = 0
+            return True
+        if was_recovery and tracking_ok:
+            self.lost = False
+            self.tracking_count = 0
+        return tracking_ok
+
+    # -- loop closures ---------------------------------------------------------
+
+    def _close_loops(self, rec, best_id, best_d, block_hd, codes, good,
+                     m2m_T, m2m_err, m2m_cnt, m2m_A, inact_px, cons_pv,
+                     cons_ot) -> None:
+        """Global (fern) + local (model-to-model) loop closure decisions
+        (ElasticFusion.cpp:391-534) on the finished frame's outputs; an
+        accepted one is applied by `_dispatch_closure`."""
+        cfg = self.cfg
+        sw = self.stopwatch
+
+        # --- global: fern retrieval, scored on the device (cpp:394-404) ---
+        sw.tick("Ferns::findFrame")
+        recovery, constraints = self.ferns.find_frame_scored(
+            int(best_id), best_d, block_hd, codes, good,
+            rec["out"]["views"], self.T_wc, rec["tick"], rec["lost_at_dispatch"],
+        )
+        sw.tock("Ferns::findFrame")
+
+        if self.ferns.last_closest != -1:
+            if rec["lost_at_dispatch"]:
+                # teleport relocalization (cpp:411-413)
+                self._teleport(np_orthonormalize(np.asarray(recovery, np.float64)))
+                return
+            gd = self.global_deformation
+            fern_time = self.ferns.closest_src_time()
+            for c in constraints:
+                gd.add_constraint(
+                    c.source_point, c.target_point, rec["tick"], fern_time, pin=True)
+            gd.constraints.extend(self.relative_cons)
+            fern_poses = [(f.src_time, f.T_wc) for f in self.ferns.frames]
+            ok, new_fern_poses, new_hist, _ = gd.constrain(
+                fern_poses, rec["tick"], fern_match=True,
+                pose_history=self.tick_poses, relax_graph=True,
+            )
+            if ok:
+                T_rec = np_orthonormalize(np.asarray(recovery, np.float64))
+                for f, (_, T) in zip(self.ferns.frames, new_fern_poses):
+                    f.T_wc = T
+                self.tick_poses = new_hist
+                self.fern_deforms += 1
+                self._dispatch_closure(rec, T_rec, gd.graph, fern_accepted=True)
+                return
+
+        # --- local: active-to-inactive model alignment (cpp:447-534) ---
+        if rec["lost_at_dispatch"] or inact_px < 1:
+            return
+        if not _covariance_ok(m2m_A, cfg.cov_threshold):
+            return
+        if not (m2m_cnt > cfg.icp_count_threshold
+                and m2m_err < cfg.icp_error_threshold):
+            return
+        T_est = np_orthonormalize(np.asarray(m2m_T, np.float64))
+
+        # constraints from consSample-subsampled pixels (cpp:485-511)
+        pv, ot = cons_pv, cons_ot
+        z_ok = (pv[2] > 0) & (pv[2] < cfg.max_depth_processed) & (ot > 0)
+        ld = self.local_deformation
+        pin = ld.deforms == 0
+        srcs = self.T_wc[:3, :3] @ pv.reshape(3, -1) + self.T_wc[:3, 3:4]
+        tgts = T_est[:3, :3] @ pv.reshape(3, -1) + T_est[:3, 3:4]
+        flat_ot = ot.reshape(-1)
+        for i in np.nonzero(z_ok.reshape(-1))[0]:
+            ld.add_constraint(
+                srcs[:, i], tgts[:, i], rec["tick"], int(flat_ot[i]), pin=pin)
+        if not ld.constraints:
+            return
+
+        fern_poses = [(f.src_time, f.T_wc) for f in self.ferns.frames]
+        ok, new_fern_poses, _, new_rel = ld.constrain(
+            fern_poses, rec["tick"], fern_match=False,
+            pose_history=self.tick_poses, relax_graph=False,
+            collect_relative=True,
+        )
+        if ok:
+            for f, (_, T) in zip(self.ferns.frames, new_fern_poses):
+                f.T_wc = T
+            self.deforms += 1
+            self._dispatch_closure(rec, T_est, ld.graph, fern_accepted=False)
+            # carry forward a third of the new relative constraints (cpp:529-531)
+            if new_rel:
+                step = max(len(new_rel) // 3, 1)
+                self.relative_cons.extend(new_rel[::step])
+
+    def _dispatch_closure(self, rec, T_target: np.ndarray, graph,
+                          fern_accepted: bool) -> None:
+        """Apply an accepted closure: the rigid pose correction T_fix
+        (world-frame left-multiply taking the closure frame's pose to its
+        corrected one) plus the map deformation, via `_apply_closure` on the
+        carried state.  Its tick is the closure frame's: the reference's
+        `max(self.tick - 1, rec.tick)` with its tick advanced before the
+        finish."""
+        T_fix = T_target @ np.linalg.inv(self.T_wc)
+        self.T_wc = np_orthonormalize(T_target)
+        # the closure frame's own logged pose becomes the corrected one
+        # (currPose = estPose before the pose log, ElasticFusion.cpp:534+588)
+        if self.tick_poses and self.tick_poses[-1][0] == rec["tick"]:
+            self.tick_poses[-1] = (rec["tick"], self.T_wc.copy())
+
+        filt_m, rgb_d = self._last_frame
+        tick_now = float(rec["tick"])
+        T_fix32 = torch.from_numpy(T_fix.astype(np.float32))
+        T_new = T_fix32 @ self._T_f32
+        dev = self.device
+        out = _apply_closure(
+            self.map, graph, T_fix32.to(dev), tick_now, T_new.to(dev),
+            tick_now, tick_now, self.lost, filt_m, rgb_d,
+            *self.ferns.encode_tables(), self.cfg, fern_accepted,
+        )
+        self.map = out["map"]
+        self._T_f32 = T_new
+        self._pred = out["pred"]
+        self._fill = out["fill"]
+        self._dense_dev = out["dense"]
+        self._views = out["views"]
+        self._codes, self._good = out["codes"], out["good"]
+
+    def _teleport(self, T_rec: np.ndarray) -> None:
+        """Lost-mode fern relocalization: jump to the recovery pose and
+        regenerate the carried prediction there (ElasticFusion.cpp:411-413);
+        the next well-conditioned frame confirms (cpp:348-364)."""
+        self.T_wc = T_rec
+        self.last_frame_recovery = True
+        self._regenerate_carried()
+
+
+def _covariance_ok(A: np.ndarray, thresh: float = 1e-4) -> bool:
+    """Covariance gate: diag of A^-1 all below thresh (cpp:330-344)."""
+    try:
+        cov = np.linalg.inv(A)
+    except np.linalg.LinAlgError:
+        return False
+    return bool((np.diag(cov) < thresh).all())

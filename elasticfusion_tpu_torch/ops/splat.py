@@ -186,3 +186,36 @@ def splat_resolve_images(ch: torch.Tensor, empty: torch.Tensor,
         time=out[11],
         depth=out[12],
     )
+
+
+def synthesize_info(
+    m: SurfelMap,
+    T_wc: torch.Tensor,
+    cam: CameraConfig,
+    conf_threshold: float,
+    max_depth: float,
+) -> Prediction:
+    """IndexMap::synthesizeInfo (IndexMap.cpp:478-556): splat prediction with
+    no time window — every confident surfel renders regardless of age."""
+    return combined_predict(
+        m, T_wc, cam, time=0.0, max_time=3.4e38, time_delta=2 ** 30,
+        conf_threshold=conf_threshold, max_depth=max_depth,
+    )
+
+
+def synthesize_depth(
+    m: SurfelMap,
+    T_wc: torch.Tensor,
+    cam: CameraConfig,
+    time,
+    max_time,
+    time_delta: int,
+    conf_threshold: float,
+    max_depth: float,
+) -> torch.Tensor:
+    """IndexMap::synthesizeDepth (IndexMap.cpp:395-476, depth_splat.frag):
+    the depth of a splat prediction with combinedPredict's gates, used for
+    the timestamp refresh after a deformation."""
+    return combined_predict(
+        m, T_wc, cam, time, max_time, time_delta, conf_threshold, max_depth,
+    ).depth

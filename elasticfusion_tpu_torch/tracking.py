@@ -23,7 +23,7 @@ count; a half whose term is switched off stays zero.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -74,6 +74,16 @@ class OdometryInputs(NamedTuple):
     T_prev: torch.Tensor                    # (4,4) f32 world←camera
 
 
+class TrackingHost(NamedTuple):
+    """What the tracker already holds on the host after its last read (numpy
+    float32): gates on a solve read these instead of the device tensors."""
+
+    T: np.ndarray                 # (4,4)
+    icp_error: np.float32
+    icp_count: np.float32
+    A: np.ndarray                 # (6,6)
+
+
 class TrackingResult(NamedTuple):
     T_curr: torch.Tensor          # (4,4)
     icp_error: torch.Tensor       # sqrt(Σr²)/inliers  (lastICPError)
@@ -84,6 +94,7 @@ class TrackingResult(NamedTuple):
     so3_count: torch.Tensor
     A: torch.Tensor               # (6,6) last combined normal matrix (lastA)
     b: torch.Tensor
+    host: Optional[TrackingHost] = None
 
 
 _F32 = np.float32
@@ -352,6 +363,8 @@ def get_incremental_transformation(
         rgb_error=stats_d[2], rgb_count=stats_d[3],
         so3_error=stats_d[4], so3_count=stats_d[5],
         A=A_d, b=b_d,
+        host=TrackingHost(T=T_curr.numpy(), icp_error=carry["icp_error"],
+                          icp_count=carry["icp_count"], A=carry["A"]),
     )
 
 
@@ -387,6 +400,29 @@ def build_current_frame_pyramids(
     )
     nmaps = tuple(compute_nmap(v) for v in vmaps)
     return vmaps, nmaps, _intensity_pyramid(rgb, cfg.num_pyramid_levels), tuple(depths)
+
+
+def build_current_model_pyramids(
+    pred_vmap: torch.Tensor,     # (3,H,W) predicted vertices, CAMERA frame
+    pred_nmap: torch.Tensor,
+    pred_image: torch.Tensor,    # (H,W,3) predicted RGB
+    cfg: EngineConfig,
+):
+    """initICP(predictedVertices, predictedNormals) + initRGB equivalent for
+    the CURRENT side of model-to-model odometry (RGBDOdometry.cpp:149-173,
+    212-244): the 'current frame' is itself a map prediction, so the vmaps
+    come from resize (not a depth pyrDown) and the depths from
+    verticesToDepth."""
+    vmaps = [pred_vmap]
+    nmaps = [pred_nmap]
+    for _ in range(1, cfg.num_pyramid_levels):
+        vmaps.append(resize_vmap(vmaps[-1]))
+        nmaps.append(resize_nmap(nmaps[-1]))
+    depths = [vertices_to_depth(pred_vmap)]
+    for _ in range(1, cfg.num_pyramid_levels):
+        depths.append(pyr_down_gauss(depths[-1]))
+    return (tuple(vmaps), tuple(nmaps),
+            _intensity_pyramid(pred_image, cfg.num_pyramid_levels), tuple(depths))
 
 
 def build_model_pyramids(

@@ -55,3 +55,45 @@ def rot_err(Ta: np.ndarray, Tb: np.ndarray) -> float:
     Rb = np.asarray(Tb, np.float64)[:3, :3]
     chord = np.linalg.norm(Ra - Rb) / (2.0 * np.sqrt(2.0))
     return float(2.0 * np.arcsin(min(chord, 1.0)))
+
+
+def run_reference_child(func: str, out_path, *args: str, timeout: float = 1200.0):
+    """Run `tests/<module>.py::<function>(out_path, *args)` of the reference
+    package in a child interpreter and load the `.npz`/pickle it writes.
+
+    A reference run that goes through un-jitted JAX calls (host
+    orchestration: `Deformation.constrain`, `Ferns`, `Engine`) compiles one
+    XLA program per operation; under `tests/conftest.py`, which forks a
+    child for every compile, such a run takes many minutes.  The child
+    compiles in its own process instead, which keeps the suite just as safe
+    from an XLA:CPU crash (it ends the child, and the run is tried once
+    more) at the cost of one interpreter start."""
+    import os
+    import pickle
+    import subprocess
+    import sys
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    module, name = func.split(":")
+    code = (
+        "import resource, sys\n"
+        "s, h = resource.getrlimit(resource.RLIMIT_STACK)\n"
+        "resource.setrlimit(resource.RLIMIT_STACK, (h, h))\n"
+        "import jax\n"
+        "jax.config.update('jax_platforms', 'cpu')\n"
+        f"sys.path.insert(0, {here!r})\n"
+        f"import {module} as m\n"
+        f"m.{name}(*sys.argv[1:])\n"
+    )
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.dirname(here), here, env.get("PYTHONPATH", "")])
+    for attempt in range(2):
+        out = subprocess.run([sys.executable, "-c", code, str(out_path), *args],
+                             cwd=os.path.dirname(here), env=env, capture_output=True,
+                             text=True, timeout=timeout)
+        if out.returncode == 0:
+            with open(out_path, "rb") as f:
+                return pickle.load(f)
+        if out.returncode > 0 or attempt == 1:
+            raise RuntimeError(f"reference run {func} failed:\n{out.stderr[-4000:]}")

@@ -1,8 +1,9 @@
 """The slice as a whole on the CPU: closure-free SLAM frames at 160x120
 through the reference `slam_step` and the port's, both started from the same
 converted state; the port's `Engine.process_frame` against its own
-`slam_step` chain; and the rules around the slice (flags that raise, no CPU
-fall-back, nothing of JAX imported by the port).
+`slam_step` chain; and the rules around the slice (flags that raise, the
+loop-closure configurations that run, no CPU fall-back, nothing of JAX
+imported by the port).
 
 Held against the reference's `slam_step` with `fx16_clean=False`: the port
 has the exact float32 `clean` only, and its `slam_step` raises when the flag
@@ -127,7 +128,7 @@ def test_engine_equals_its_own_slam_step_chain(frames):
     m = port_engine._init_map(raw_m, filt_m, tt(rgb0), cfg, CAP)
     T0 = tt(np.asarray(poses[0], np.float32))
     one = torch.tensor(1.0)
-    pred, fill, dense = port_engine._predict_only(
+    pred, fill, dense, _ = port_engine._predict_only(
         m, T0, one, one, filt_m, tt(rgb0), False, cfg)
     state = convert.EngineState(
         T=T0, so3_hist=port_engine._coarse_intensity(tt(rgb0), cfg), pred=pred, fill=fill)
@@ -158,16 +159,31 @@ def test_engine_grows_the_map_before_it_overflows(frames):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (dict(closeLoops=True), "M8"),
     (dict(mesh_shape=(2,)), "M11"),
     (dict(pipeline_depth=2), "M7"),
-    (dict(reloc_mode=True), "M7"),
     (dict(fx16_tables=True), "M12"),
 ])
 def test_unported_flags_raise(flags, item):
     cfg = PortConfig(**{"closeLoops": False, **flags})
     with pytest.raises(NotImplementedError, match=item):
         port_engine.Engine(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("flags", [dict(), dict(reloc_mode=True)],
+                         ids=["defaults", "reloc_mode"])
+def test_loop_closure_configs_construct_and_run(frames, flags):
+    """`Engine(EngineConfig(camera=...))` — the defaults, `closeLoops=True` —
+    and the same with `reloc_mode` construct and process two frames."""
+    _, port_cam, poses, rendered = frames
+    cfg = PortConfig(camera=port_cam, **flags)
+    assert cfg.closeLoops
+    eng = port_engine.Engine(cfg, device="cpu")
+    for i in range(2):
+        d, rgb = rendered[i]
+        res = eng.process_frame(rgb, d, timestamp=i)
+    assert eng.tick == 3 and res.tracking_ok and not res.lost and res.fused
+    assert np.linalg.norm(res.T_wc[:3, 3] - poses[1][:3, 3]) < 5e-3
+    assert len(eng.ferns.frames) == 1 and eng.local_deformation is not None
 
 
 def test_unported_entry_points_raise(frames):
