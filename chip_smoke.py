@@ -779,18 +779,21 @@ def phase_main_path(cam, frames, gt_poses):
 
 # (b): the there-and-back run of the reference package's local-closure test
 # (tests/test_closeloop.py:76-86) at 640x480: the same per-frame motion, 12
-# frames out and 12 back; thresholds that count pixels scaled by 16 (the
-# pixel ratio of 640x480 to 160x120: 2000 -> 32000 model-to-model inliers,
-# one node per 500 -> 8000 surfels)
+# frames out and 12 back.  Its gates scaled by the pixel ratio r = 16 of
+# 640x480 to 160x120, each as its quantity grows with the pixel count n:
+# model-to-model inliers and surfels per node as n (2000 -> 32000, 500 ->
+# 8000), the ICP error sqrt(sum r^2) / n as n^-1/2 (5e-4 -> 1.25e-4), the
+# diagonal of A^-1 as 1/n (1e-4 -> 6.25e-6)
 N_OUT = 12
+PIXEL_RATIO = 16
 MAX_CLOSURE_END_ERR_M = 0.06
 
 
-def closure_config(cam: CameraConfig) -> EngineConfig:
+def closure_config(cam: CameraConfig, r: int = PIXEL_RATIO) -> EngineConfig:
     return engine_config(cam).with_(
-        closeLoops=True, time_delta=6, icp_error_threshold=5e-4,
-        cov_threshold=1e-4, icp_count_threshold=32000, fern_min_age=1000,
-        def_graph_sample_rate=8000)
+        closeLoops=True, time_delta=6, icp_error_threshold=5e-4 / r ** 0.5,
+        cov_threshold=1e-4 / r, icp_count_threshold=2000 * r, fern_min_age=1000,
+        def_graph_sample_rate=500 * r)
 
 
 def reloc_config(cam: CameraConfig) -> EngineConfig:
@@ -801,28 +804,42 @@ def reloc_config(cam: CameraConfig) -> EngineConfig:
         lost_inlier_relax=50, fern_threshold=0.12, fern_icp_error=2e-3)
 
 
-def there_and_back(scene, cam):
+def there_and_back(scene, cam, n_out=N_OUT):
     poses = [pose_from_xyzrpy(x=0.035 * s, yaw=0.012 * s)
-             for s in (i if i < N_OUT else 2 * N_OUT - i - 1 for i in range(2 * N_OUT))]
+             for s in (i if i < n_out else 2 * n_out - i - 1 for i in range(2 * n_out))]
     return [render_frame(scene[0], scene[1], T, cam) for T in poses], poses
 
 
-def run_closures(cam, frames):
-    """(b) once: per-frame poses and counts, the engine, and for every
-    accepted closure the host time of its frame's closure work (decision,
-    deformation solve, repair, synchronised) and its host reads."""
-    eng = Engine(closure_config(cam), device=DEV)
-    closures = []
+def max_cov(A) -> float:
+    """Largest diagonal entry of A^-1, what the covariance gate compares."""
+    try:
+        return float(np.diag(np.linalg.inv(np.asarray(A, np.float64))).max())
+    except np.linalg.LinAlgError:
+        return float("inf")
+
+
+def run_closures(cam, frames, cfg):
+    """(b) once: per-frame poses and counts, the engine, for every accepted
+    closure the host time of its frame's closure work (decision, deformation
+    solve, repair, synchronised) and its host reads, and for every frame with
+    an inactive prediction the model-to-model values its gates compare."""
+    eng = Engine(cfg, device=DEV)
+    closures, gates = [], []
     real = Engine._close_loops
 
-    def timed(self, *args, **kwargs):
+    def timed(self, rec, *args, **kwargs):
         n0, r0, t0 = self.deforms + self.fern_deforms, _device.host_reads, time.perf_counter()
-        real(self, *args, **kwargs)
+        local0 = self.deforms
+        real(self, rec, *args, **kwargs)
         torch.cuda.synchronize()
         if self.deforms + self.fern_deforms > n0:
-            closures.append(dict(tick=args[0]["tick"],
+            closures.append(dict(tick=rec["tick"],
                                  ms=(time.perf_counter() - t0) * 1e3,
                                  reads=_device.host_reads - r0))
+        m2m_err, m2m_cnt, m2m_A, inact_px = args[6:10]
+        if inact_px > 0:
+            gates.append(dict(tick=rec["tick"], count=m2m_cnt, err=m2m_err,
+                              cov=max_cov(m2m_A), closed=self.deforms > local0))
     Engine._close_loops = timed
     poses, counts = [], []
     try:
@@ -834,7 +851,7 @@ def run_closures(cam, frames):
         Engine._close_loops = real
     torch.cuda.synchronize()
     return dict(poses=np.stack(poses), counts=counts, engine=eng, closures=closures,
-                deforms=(eng.deforms, eng.fern_deforms))
+                gates=gates, deforms=(eng.deforms, eng.fern_deforms))
 
 
 def fern_views(scene, cam, T):
@@ -886,6 +903,29 @@ def run_reloc(scene, cam):
                 err=float(np.linalg.norm(eng.T_wc[:3, 3] - T0[:3, 3])))
 
 
+def print_gates(what, cfg, gates):
+    print(f"  {what} model-to-model gates: inliers > {cfg.icp_count_threshold}, "
+          f"error < {cfg.icp_error_threshold:g}, max diag(A^-1) < "
+          f"{cfg.cov_threshold:g}", flush=True)
+    for g in gates:
+        print(f"    m2m at tick {g['tick']}: inliers {g['count']:.0f}, error "
+              f"{g['err']:.3e}, max diag(A^-1) {g['cov']:.3e}"
+              f"{' -> closed' if g['closed'] else ''}", flush=True)
+
+
+def run_small_closures():
+    """(b) at 160x120 as tests/test_closeloop.py:76-86 runs it (its scene, 8
+    frames out and 8 back, its gates): the gate log at the resolution the
+    gates were set for."""
+    cam = CameraConfig(width=160, height=120, fx=132.0, fy=132.0, cx=80.0, cy=60.0)
+    frames, _ = there_and_back(make_scene(n_side=700), cam, n_out=8)
+    cfg = closure_config(cam, r=1)
+    run = run_closures(cam, frames, cfg)
+    print_gates("(b) 160x120", cfg, run["gates"])
+    check(run["deforms"][0] >= 1, f"(b) 160x120: {run['deforms'][0]} local closures "
+          f"at ticks {[c['tick'] for c in run['closures']]}")
+
+
 def phase_closure(cam, frames, gt_poses, main_ms, entries):
     """The loop-closure path at 640x480, each run read with the counts set to
     0 just before it: (a) the sweep with closeLoops (the steady per-frame
@@ -920,7 +960,7 @@ def phase_closure(cam, frames, gt_poses, main_ms, entries):
 
     def drive_b(tracker_reads):
         with StepRecorder(cap), CallerCounts(tracker_reads) as att:
-            return run_closures(cam, frames_b), att
+            return run_closures(cam, frames_b, closure_config(cam)), att
     (b, att_b), launches_b, reads_b = counted(drive_b)
     check_launched("(b) there-and-back", launches_b, FRAME_KERNELS)
     att_b.check_identity("(b) there-and-back")
@@ -938,8 +978,10 @@ def phase_closure(cam, frames, gt_poses, main_ms, entries):
     for c in b["closures"]:
         print(f"  closure at tick {c['tick']}: host {c['ms']:.1f} ms, "
               f"{c['reads']} host reads", flush=True)
+    print_gates("(b) 640x480", closure_config(cam), b["gates"])
     print(f"  launches per caller: {att_b.launches} in {att_b.runs} runs", flush=True)
-    b2 = run_closures(cam, frames_b)
+    b2 = run_closures(cam, frames_b, closure_config(cam))
+    run_small_closures()
     check(np.array_equal(b["poses"], b2["poses"]) and b["counts"] == b2["counts"]
           and b["deforms"] == b2["deforms"],
           "(b) a second identical run gives bit-identical poses, counts and deforms")

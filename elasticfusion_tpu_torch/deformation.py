@@ -466,12 +466,6 @@ class Deformation:
         self._stale = False
 
     # -- graph (re)initialization -------------------------------------------
-    def sample_graph_model(self, m: SurfelMap) -> None:
-        """Every sample_rate-th surfel becomes a node (sample.geom:33-39), node
-        time = surfel init time (the map's slots are in time order).  Lazy:
-        the graph is built only when a closure optimises (`_materialize`)."""
-        self.set_sampled(*_sample_every(m.pos, m.init_t, m.count, self.sample_rate))
-
     def set_sampled(self, pos_sub, times_sub, count) -> None:
         """Accept a node sample taken inside the frame (device tensors)."""
         self._pending = (pos_sub, times_sub, count)

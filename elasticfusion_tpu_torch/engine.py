@@ -37,7 +37,7 @@ import torch
 from ._device import DeviceLike, read_back, resolve_device
 from .config import EngineConfig
 from .deformation import Deformation, _sample_every, apply_graph_to_surfels
-from .ferns import Ferns, fern_encode_device, fern_score_device
+from .ferns import Ferns, decimate_views, fern_encode_device, fern_score_device
 from .ops.fillin import fill_all
 from .ops.fuse import FuseStats, clean, fuse
 from .ops.preprocess import (
@@ -48,7 +48,7 @@ from .ops.preprocess import (
 )
 from .ops.splat import Prediction, combined_predict, predict_indices, synthesize_depth
 from .se3 import invert, np_orthonormalize, se3_log_norm
-from .surfels import SurfelMap, init_map_from_frame
+from .surfels import SurfelMap, init_map_from_frame, recip32
 from .tracking import (
     OdometryInputs,
     TrackingHost,
@@ -195,17 +195,6 @@ def slam_step(
     return m, T, so3_cur, (vtx, nrm, img), pred, dense, res
 
 
-def _decimate_views(img, vtx, nrm, factor: int):
-    """Nearest decimation at output-pixel centres for the fern views (the
-    reference's Resize pass, Resize.cpp:69-146), on the device."""
-    off = factor // 2
-    return (
-        img[off::factor, off::factor],
-        vtx[:, off::factor, off::factor],
-        nrm[:, off::factor, off::factor],
-    )
-
-
 def _sample_nodes(m: SurfelMap, rate: int):
     """Every rate-th surfel's (position [M,3], init time [M]) — the
     deformation-graph node sample (sample.geom:33-39)."""
@@ -278,7 +267,7 @@ def _closure_inputs(m: SurfelMap, T, T_host, pred: Prediction, fill, tick, fern,
     cam = cfg.camera
     vtx, nrm, img = fill
     fern_flat, fern_rgbd, db_codes, db_good, db_time, db_count = fern
-    views = _decimate_views(img, vtx, nrm, cfg.fern_pyramid_factor)
+    views = decimate_views(img, vtx, nrm, cfg.fern_pyramid_factor)
     codes, good = fern_encode_device(views[0], views[1], fern_flat, fern_rgbd)
     scores = fern_score_device(codes, good, db_codes, db_good, db_time, db_count,
                                tick, cfg.fern_min_age)
@@ -351,7 +340,7 @@ def _frame_main(
         torch.maximum(torch.linalg.vector_norm(T_cp[:3, 3]), se3_log_norm(T_cp)),
         max=0.01,
     )
-    weighting = torch.clamp(1.0 - w / 0.01, min=0.5) * weight_mult
+    weighting = torch.clamp(1.0 - w * recip32(0.01), min=0.5) * weight_mult
 
     track_ok = _tracking_ok(res.host, cfg) if cfg.reloc_mode else True
 
@@ -454,7 +443,7 @@ def _apply_closure(
     )
     pred, vtx, nrm, img, dense = _predict(
         m2, T_new, tick_now, max_time, filt_m, rgb, lost, cfg)
-    views = _decimate_views(img, vtx, nrm, cfg.fern_pyramid_factor)
+    views = decimate_views(img, vtx, nrm, cfg.fern_pyramid_factor)
     codes, good = fern_encode_device(views[0], views[1], fern_flat, fern_rgbd)
     return dict(map=m2, pred=pred, fill=(vtx, nrm, img), dense=dense,
                 views=views, codes=codes, good=good)
@@ -466,7 +455,7 @@ def _predict_only(m: SurfelMap, T_wc, tick, max_time, depth_filt_m, rgb, lost,
     relocalization teleport)."""
     pred, vtx, nrm, img, dense = _predict(
         m, T_wc, tick, max_time, depth_filt_m, rgb, lost, cfg)
-    views = _decimate_views(img, vtx, nrm, cfg.fern_pyramid_factor)
+    views = decimate_views(img, vtx, nrm, cfg.fern_pyramid_factor)
     return pred, (vtx, nrm, img), dense, views
 
 

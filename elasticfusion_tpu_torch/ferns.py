@@ -12,16 +12,17 @@ keyframe pose (cpp:241-250) and a photometric reprojection check
 
 The tables are drawn from `np.random.default_rng(cfg.fern_seed)` in the
 reference package's order, so both packages encode a view to the same codes.
-Encoding and scoring run on the tensors' device (`fern_encode_device`,
-`fern_score_device`) against a fixed-capacity keyframe DB there; the host
-reads the views of a frame only when it keeps a keyframe or verifies a
-retrieval.
+Decimation, encoding and scoring run on the tensors' device
+(`decimate_views`, `fern_encode_device`, `fern_score_device`) against a
+fixed-capacity keyframe DB there, for the engine's frames and for
+`add_frame` / `find_frame` alike; the host reads the views of a frame only
+when it keeps a keyframe or verifies a retrieval.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -32,6 +33,17 @@ from .ops.preprocess import resize_nmap, resize_vmap
 from .tracking import OdometryInputs, get_incremental_transformation
 
 BAD_CODE = 255
+
+
+def decimate_views(img, vtx, nrm, factor: int):
+    """Nearest decimation at output-pixel centres for the fern views (the
+    reference's Resize pass, Resize.cpp:69-146), on the device."""
+    off = factor // 2
+    return (
+        img[off::factor, off::factor],
+        vtx[:, off::factor, off::factor],
+        nrm[:, off::factor, off::factor],
+    )
 
 
 def fern_encode_device(img_s, vtx_s, fern_flat, fern_rgbd):
@@ -108,37 +120,16 @@ class SurfaceConstraint:
     target_point: np.ndarray   # world, via the estimated (recovery) pose
 
 
-def _downsample(img: np.ndarray, factor: int) -> np.ndarray:
-    """Nearest decimation at output-pixel centres (the reference's Resize
-    shader samples the big texture at small-pixel centres)."""
-    off = factor // 2
-    if img.ndim == 3 and img.shape[0] == 3:  # [3,H,W]
-        return img[:, off::factor, off::factor]
-    return img[off::factor, off::factor]
-
-
-def _to_small(img, verts, norms, height, width, factor):
-    """Full-resolution or already decimated views (`engine._decimate_views`)
-    → host numpy (u8 RGB, f32 vertices, f32 normals) at fern resolution.
-    Tensors are read in ONE device→host copy."""
-    if isinstance(img, torch.Tensor):
-        parts = (img, verts, norms)
-        flat = read_back(torch.cat([p.reshape(-1).to(torch.float32) for p in parts]))
-        out, o = [], 0
-        for p in parts:
-            out.append(flat[o:o + p.numel()].reshape(p.shape))
-            o += p.numel()
-        img, verts, norms = out
-    img = np.asarray(img)
-    if img.shape[0] != height:
-        img = _downsample(img, factor)
-        verts = _downsample(np.asarray(verts), factor)
-        norms = _downsample(np.asarray(norms), factor)
-    return (
-        np.clip(img, 0, 255).astype(np.uint8),
-        np.asarray(verts, np.float32),
-        np.asarray(norms, np.float32),
-    )
+def _to_small(img, verts, norms):
+    """Decimated device views (`decimate_views`) → host numpy (u8 RGB, f32
+    vertices, f32 normals), read in ONE device→host copy."""
+    parts = (img, verts, norms)
+    flat = read_back(torch.cat([p.reshape(-1).to(torch.float32) for p in parts]))
+    out, o = [], 0
+    for p in parts:
+        out.append(flat[o:o + p.numel()].reshape(p.shape))
+        o += p.numel()
+    return np.clip(out[0], 0, 255).astype(np.uint8), out[1], out[2]
 
 
 class Ferns:
@@ -238,72 +229,41 @@ class Ferns:
             )
         return self._dev_tables
 
-    # -- encoding ------------------------------------------------------------
-
-    def _encode(self, rgb_small: np.ndarray, verts_small: np.ndarray) -> Tuple[np.ndarray, int]:
-        """4-bit fern codes of a host view (Ferns.cpp:108-127)."""
-        x, y = self.pos[:, 0], self.pos[:, 1]
-        z = verts_small[2, y, x]
-        px = rgb_small[y, x].astype(np.int64)          # [num, 3]
-        code = (
-            ((px[:, 0] > self.rgbd[:, 0]).astype(np.uint8) << 3)
-            | ((px[:, 1] > self.rgbd[:, 1]).astype(np.uint8) << 2)
-            | ((px[:, 2] > self.rgbd[:, 2]).astype(np.uint8) << 1)
-            | ((z * 1000.0).astype(np.int64) > self.rgbd[:, 3]).astype(np.uint8)
-        )
-        valid = z > 0
-        code = np.where(valid, code, BAD_CODE).astype(np.uint8)
-        return code, int(valid.sum())
-
-    def _score(self, codes: np.ndarray, good: int, time):
-        """Scoring of host codes through `fern_score_device`; one read of the
-        four scalars (add_min, best_id, best_d, block_hd)."""
-        db_c, db_g, db_t, db_n = self.device_db()
+    def _views_and_scores(self, image, vertex, normal, time):
+        """Full-resolution views (tensors or arrays) → their decimated views
+        on the device, codes and retrieval scores, as the engine's frame
+        computes them; the codes and scores are read in ONE copy.  Returns
+        (views, codes i32 [num], good, add_min, best_id, best_d, block_hd)."""
         dev = self.device
-        out = fern_score_device(
-            torch.from_numpy(np.asarray(codes, np.int64).astype(np.int32)).to(dev),
-            torch.tensor(good, dtype=torch.int32, device=dev), db_c, db_g, db_t,
-            db_n, torch.tensor(float(time), device=dev), self.cfg.fern_min_age,
-        )
-        add_min, best_id, best_d, block_hd = read_back(
-            torch.stack([x.to(torch.float32) for x in out]))
-        return float(add_min), int(best_id), float(best_d), float(block_hd)
+        views = decimate_views(*(torch.as_tensor(x, dtype=torch.float32, device=dev)
+                                 for x in (image, vertex, normal)), self.factor)
+        codes, good = fern_encode_device(views[0], views[1], *self.encode_tables())
+        db_c, db_g, db_t, db_n = self.device_db()
+        scores = fern_score_device(
+            codes, good, db_c, db_g, db_t, db_n,
+            torch.tensor(float(time), device=dev), self.cfg.fern_min_age)
+        f32 = torch.float32
+        vec = read_back(torch.cat(
+            [codes.to(f32), torch.stack([good.to(f32), *(x.to(f32) for x in scores)])]))
+        n = self.num
+        add_min, best_id, best_d, block_hd = vec[n + 1:]
+        return (views, vec[:n].astype(np.int32), int(vec[n]), float(add_min),
+                int(best_id), float(best_d), float(block_hd))
 
     # -- public surface (addFrame / findFrame) -------------------------------
 
     def add_frame(self, image, vertex, normal, T_wc: np.ndarray, src_time: int,
                   threshold: Optional[float] = None) -> bool:
-        """Ferns::addFrame (Ferns.cpp:78-160): encode the predicted view, keep
-        it as a keyframe iff its least dissimilarity over the DB exceeds the
-        threshold."""
-        rgb_s, vert_s, norm_s = _to_small(
-            image, vertex, normal, self.height, self.width, self.factor
-        )
-        codes, good = self._encode(rgb_s, vert_s)
-        return self.add_frame_codes(
-            codes, good, (rgb_s, vert_s, norm_s), T_wc, src_time, threshold
-        )
-
-    def add_frame_codes(self, codes: np.ndarray, good: int, views,
-                        T_wc: np.ndarray, src_time: int,
-                        threshold: Optional[float] = None) -> bool:
-        """addFrame with codes encoded on the device; `views` are read to the
-        host only when the keyframe is kept."""
-        threshold = self.cfg.fern_threshold if threshold is None else threshold
-        if good == 0:
-            return False
-        codes = np.asarray(codes, np.uint8).reshape(-1)
-        minimum = (
-            self._score(codes, good, src_time)[0] if self.frames else np.inf
-        )
-        if minimum > threshold or len(self.frames) == 0:
-            return self._append_keyframe(codes, good, views, T_wc, src_time)
-        return False
+        """Ferns::addFrame (Ferns.cpp:78-160) of a full-resolution predicted
+        view: keep it as a keyframe iff its least dissimilarity over the DB
+        exceeds the threshold."""
+        views, codes, good, add_min, *_ = self._views_and_scores(
+            image, vertex, normal, src_time)
+        return self.add_frame_scored(add_min, codes, good, views, T_wc, src_time,
+                                     threshold)
 
     def _append_keyframe(self, codes, good, views, T_wc, src_time) -> bool:
-        rgb_s, vert_s, norm_s = _to_small(
-            views[0], views[1], views[2], self.height, self.width, self.factor,
-        )
+        rgb_s, vert_s, norm_s = _to_small(*views)
         f = FernFrame(
             id=len(self.frames), codes=codes, good_codes=int(good),
             T_wc=np.asarray(T_wc, np.float64).copy(), src_time=int(src_time),
@@ -314,12 +274,14 @@ class Ferns:
         return True
 
     def add_frame_scored(self, add_min: float, codes, good, views,
-                         T_wc: np.ndarray, src_time: int) -> bool:
+                         T_wc: np.ndarray, src_time: int,
+                         threshold: Optional[float] = None) -> bool:
         """addFrame with the dissimilarity minimum already scored on the
         device: no host compute unless the keyframe is kept."""
+        threshold = self.cfg.fern_threshold if threshold is None else threshold
         if good == 0:
             return False
-        if len(self.frames) == 0 or add_min > self.cfg.fern_threshold:
+        if len(self.frames) == 0 or add_min > threshold:
             return self._append_keyframe(
                 np.asarray(codes, np.uint8).reshape(-1), int(good), views,
                 T_wc, src_time,
@@ -344,9 +306,7 @@ class Ferns:
             return None, constraints
         fern = self.frames[int(best_id)]
 
-        rgb_s, vert_s, norm_s = _to_small(
-            views[0], views[1], views[2], self.height, self.width, self.factor
-        )
+        rgb_s, vert_s, norm_s = _to_small(*views)
         T_est_mat, icp_error, icp_count = self._fern_icp(fern, vert_s, norm_s)
 
         photo = self._photometric_check(vert_s, rgb_s, T_est_mat, fern)
@@ -379,28 +339,13 @@ class Ferns:
 
     def find_frame(self, image, vertex, normal, T_wc: np.ndarray, time: int,
                    lost: bool):
-        """Ferns::findFrame (Ferns.cpp:162-298).  Returns
-        (T_wc_recovery | None, [SurfaceConstraint]); sets `last_closest`."""
-        rgb_s, vert_s, norm_s = _to_small(
-            image, vertex, normal, self.height, self.width, self.factor
-        )
-        codes, good = self._encode(rgb_s, vert_s)
-        return self.find_frame_codes(
-            codes, good, (rgb_s, vert_s, norm_s), T_wc, time, lost
-        )
-
-    def find_frame_codes(self, codes: np.ndarray, good: int, views,
-                         T_wc: np.ndarray, time: int, lost: bool):
-        """findFrame with codes encoded on the device, scored through
-        `fern_score_device`."""
-        self.last_closest = -1
-        if not self.frames or good == 0:
-            return None, []
-        codes = np.asarray(codes, np.uint8).reshape(-1)
-        _, best_id, best_d, block_hd = self._score(codes, good, time)
+        """Ferns::findFrame (Ferns.cpp:162-298) of a full-resolution predicted
+        view.  Returns (T_wc_recovery | None, [SurfaceConstraint]); sets
+        `last_closest`."""
+        views, codes, good, _, best_id, best_d, block_hd = self._views_and_scores(
+            image, vertex, normal, time)
         return self.find_frame_scored(
-            best_id, best_d, block_hd, codes, good, views, T_wc, time, lost
-        )
+            best_id, best_d, block_hd, codes, good, views, T_wc, time, lost)
 
     # -- internals -----------------------------------------------------------
 

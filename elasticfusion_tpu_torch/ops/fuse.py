@@ -32,6 +32,7 @@ from ..surfels import (
     pack_map,
     pixel_confidence,
     pixel_grid,
+    recip32,
     surfel_radius,
     unpack_map,
 )
@@ -96,8 +97,8 @@ def fuse(
 
     # --- measurement construction (data.vert:76-105) ---
     z = depth_raw_m
-    xl = (u - cam.cx) / cam.fx
-    yl = (v - cam.cy) / cam.fy
+    xl = (u - cam.cx) * recip32(cam.fx)
+    yl = (v - cam.cy) * recip32(cam.fy)
     v_local = torch.stack([xl * z, yl * z, z])                # raw-depth vertex
     n_local, n_valid = central_diff_normals(depth_filtered_m, cam)
     rad_new = surfel_radius(depth_filtered_m, n_local[2], cam)

@@ -26,7 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import CameraConfig
-from ..surfels import pixel_grid
+from ..surfels import pixel_grid, recip32
 
 # 5-tap binomial weights used by both pyrDown flavours (cudafuncs.cu:97, 512)
 _GAUSS5 = (1.0, 4.0, 6.0, 4.0, 1.0)
@@ -94,7 +94,7 @@ def metricise_depth(depth_mm: torch.Tensor, max_depth: float = 20.0) -> torch.Te
     (depth_metric.frag)."""
     d = depth_mm.to(torch.float32)
     gate = (d > max_depth * 1000.0) | (d < 300.0)
-    return torch.where(gate, torch.zeros_like(d), d / 1000.0)
+    return torch.where(gate, torch.zeros_like(d), d * recip32(1000.0))
 
 
 def compute_vmap(

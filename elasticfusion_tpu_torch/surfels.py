@@ -11,6 +11,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 from ._device import DeviceLike, resolve_device
@@ -45,6 +46,14 @@ def empty_map(capacity: int, device: DeviceLike = None) -> SurfelMap:
     )
 
 
+def recip32(c: float) -> float:
+    """The float32 reciprocal of a constant divisor.  XLA folds `x / c` into
+    `x * (1/c)`, and PyTorch does the same for a CUDA tensor; multiplying by
+    this makes a CPU tensor round alike (a true division differs by one ulp
+    at many values)."""
+    return float(np.float32(1.0) / np.float32(c))
+
+
 def pixel_grid(H: int, W: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
     """(u, v) float32 pixel coordinate images, each [H, W]."""
     v, u = torch.meshgrid(
@@ -74,8 +83,8 @@ def pixel_confidence(x: torch.Tensor, y: torch.Tensor, weighting, cam: CameraCon
     with the maximum radius derived from the intrinsics."""
     max_rad = math.sqrt(cam.cx * cam.cx + cam.cy * cam.cy)
     two_sigma_sq = 0.72  # 2 * 0.6^2, from the paper
-    r2 = ((x - cam.cx) ** 2 + (y - cam.cy) ** 2) / (max_rad * max_rad)
-    return torch.exp(-r2 / two_sigma_sq) * weighting
+    r2 = ((x - cam.cx) ** 2 + (y - cam.cy) ** 2) * recip32(max_rad * max_rad)
+    return torch.exp(-r2 * recip32(two_sigma_sq)) * weighting
 
 
 def central_diff_normals(
@@ -93,7 +102,8 @@ def central_diff_normals(
         # wrap-around of roll only reaches border pixels, which are invalid
         z = torch.roll(depth_m, shifts=(-dv, -du), dims=(0, 1))
         return torch.stack(
-            [(u + du - cam.cx) * z / cam.fx, (v + dv - cam.cy) * z / cam.fy, z]
+            [(u + du - cam.cx) * z * recip32(cam.fx),
+             (v + dv - cam.cy) * z * recip32(cam.fy), z]
         )
 
     del_x = vert(-1, 0) - vert(1, 0)
@@ -124,7 +134,7 @@ def init_map_from_frame(
     u, v = pixel_grid(H, W, dev)
     z = depth_raw_m
     pos = torch.stack(
-        [(u - cam.cx) * z / cam.fx, (v - cam.cy) * z / cam.fy, z]
+        [(u - cam.cx) * z * recip32(cam.fx), (v - cam.cy) * z * recip32(cam.fy), z]
     ).reshape(3, -1)
     normal, nvalid = central_diff_normals(depth_filtered_m, cam)
     rad = surfel_radius(depth_filtered_m, normal[2], cam)

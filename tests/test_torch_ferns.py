@@ -102,10 +102,10 @@ def test_encode_and_score_match_reference(views):
     port_cam, vs = views
     port = port_ferns.Ferns(PortConfig(camera=port_cam, **FERN_CFG), "cpu")
     flat, rgbd = (nn(t) for t in port.encode_tables())
-    small = [port_ferns._to_small(img, v, n, port.height, port.width, port.factor)
+    small = [port_ferns.decimate_views(tt(img), tt(v), tt(n), port.factor)
              for img, v, n in vs]
-    imgs = np.stack([s[0].astype(np.float32) for s in small])
-    verts = np.stack([s[1] for s in small])
+    imgs = np.stack([nn(s[0]) for s in small])
+    verts = np.stack([nn(s[1]) for s in small])
     times = np.array([1, 2, 3, 4, np.inf, np.inf, np.inf, np.inf], np.float32)
 
     @jax.jit
@@ -210,11 +210,29 @@ def test_db_grows_and_keeps_its_rows(views):
     assert np.isinf(nn(times)[5:]).all() and (nn(codes)[5:] == 255).all()
 
 
-def test_device_views_are_read_in_one_copy(views):
-    """`_to_small` of tensors equals its numpy path."""
-    _, vs = views
+def test_device_views_are_read_in_one_copy(views, monkeypatch):
+    """`add_frame` / `find_frame` take full-resolution views through the
+    engine's device path: `decimate_views` samples the output-pixel centres,
+    the codes and scores come back in one read, and a kept keyframe's views
+    in one more (`_to_small`)."""
+    port_cam, vs = views
     img, v, n = vs[0]
-    a = port_ferns._to_small(img, v, n, 15, 20, 8)
-    b = port_ferns._to_small(tt(img), tt(v), tt(n), 15, 20, 8)
-    for x, y in zip(a, b):
+    small = port_ferns.decimate_views(tt(img), tt(v), tt(n), 8)
+    want = (img[4::8, 4::8], v[:, 4::8, 4::8], n[:, 4::8, 4::8])
+    for x, y in zip(small, want):
+        np.testing.assert_array_equal(nn(x), y)
+    got = port_ferns._to_small(*small)
+    np.testing.assert_array_equal(got[0], np.clip(want[0], 0, 255).astype(np.uint8))
+    for x, y in zip(got[1:], want[1:]):
         np.testing.assert_array_equal(x, y)
+
+    reads = []
+    real = port_ferns.read_back
+    monkeypatch.setattr(port_ferns, "read_back", lambda t: reads.append(t.numel()) or real(t))
+    port = port_ferns.Ferns(PortConfig(camera=port_cam, **FERN_CFG), "cpu")
+    assert port.add_frame(img, v, n, np.eye(4), src_time=1)
+    num, views_px = port.num, sum(t.numel() for t in small)
+    assert reads == [num + 5, views_px]
+    reads.clear()
+    assert not port.add_frame(img, v, n, np.eye(4), src_time=2)
+    assert reads == [num + 5]

@@ -13,6 +13,10 @@ from elasticfusion_tpu.utils.synthetic import make_scene, pose_from_xyzrpy, rend
 from elasticfusion_tpu_torch.ops import preprocess as port_pp
 
 
+# every uint16 depth value, as a 256x256 image
+EVERY_MM = np.arange(1 << 16, dtype=np.float32).reshape(256, 256)
+
+
 @pytest.fixture(scope="module")
 def frame():
     ref_cam, port_cam = both_cams(SMALL_CAM)
@@ -30,7 +34,7 @@ def ref_out(frame):
     ref_cam, _, depth_mm, rgb = frame
 
     @jax.jit
-    def run(depth_mm, rgb):
+    def run(depth_mm, rgb, every_mm):
         filt = ref_pp.bilateral_filter(depth_mm, 20.0, 6)
         filt_m = ref_pp.metricise_depth(filt, 3.0)
         vmap = ref_pp.compute_vmap(filt_m, ref_cam, 20.0)
@@ -40,6 +44,7 @@ def ref_out(frame):
         zdepth = ref_pp.vertices_to_depth(vmap, 2.2)
         return dict(
             bilateral=filt, metricise=filt_m, vmap=vmap, nmap=nmap,
+            metricise_every_mm=ref_pp.metricise_depth(every_mm, 20.0),
             pyr_down_depth=ref_pp.pyr_down_depth(filt_m),
             vertices_to_depth=zdepth,
             pyr_down_gauss=ref_pp.pyr_down_gauss(zdepth),
@@ -50,7 +55,8 @@ def ref_out(frame):
             deriv_x=dx, deriv_y=dy,
         )
 
-    return {k: np.asarray(v) for k, v in run(jnp.asarray(depth_mm), jnp.asarray(rgb)).items()}
+    out = run(jnp.asarray(depth_mm), jnp.asarray(rgb), jnp.asarray(EVERY_MM))
+    return {k: np.asarray(v) for k, v in out.items()}
 
 
 @pytest.fixture(scope="module")
@@ -63,6 +69,7 @@ def port_out(frame, ref_out):
     return dict(
         bilateral=port_pp.bilateral_filter(tt(depth_mm), 20.0, 6),
         metricise=port_pp.metricise_depth(r["bilateral"], 3.0),
+        metricise_every_mm=port_pp.metricise_depth(tt(EVERY_MM), 20.0),
         vmap=port_pp.compute_vmap(r["metricise"], port_cam, 20.0),
         nmap=port_pp.compute_nmap(r["vmap"]),
         pyr_down_depth=port_pp.pyr_down_depth(r["metricise"]),
@@ -81,9 +88,10 @@ TOLERANCE = {
     # whole millimetres after a round(): a 169-tap float32 sum that lands within
     # rounding of x.5 may round the other way
     "bilateral": (1e-3, 1e-3, "1 mm flips at <0.1 % of pixels"),
-    # one division by 1000, which the reference's compiler turns into a
-    # multiplication by the reciprocal: 1 ulp of a depth below 4 m
-    "metricise": (2.4e-7, 0.0, "1 ulp"),
+    # the reference's compiler turns the division by 1000 into a
+    # multiplication by the float32 reciprocal, and so does the port
+    "metricise": (0.0, 0.0, "bit-identical"),
+    "metricise_every_mm": (0.0, 0.0, "bit-identical at every uint16 depth"),
     "vmap": (1e-6, 0.0, "two multiplications"),
     "nmap": (1e-5, 0.0, "normalised cross product"),
     "pyr_down_depth": (1e-6, 1e-3, "25-tap weighted mean; a tap at the 3-sigma gate may flip"),
