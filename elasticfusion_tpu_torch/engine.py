@@ -10,24 +10,32 @@ The loop-closure *decisions* (fern retrieval, deformation Gauss-Newton
 acceptance) and the relocalization state machine run on the host, and an
 accepted closure is applied by `_apply_closure`.
 
-Frames are finished synchronously inside `process_frame`.  Device→host reads
-(`_device.host_reads` counts them) per frame: the tracker's (one per
-Gauss-Newton or SO(3) iteration), one of the packed finish vector, and with
-`closeLoops` one of the "inactive surfel exists" predicate plus, when the
-model-to-model solve runs, its tracker's reads.  Where the reference package
-decides on its device (`lax.cond`), this port decides on the host from values
-the host already holds: the tracking gates from the tracker's last read, the
-model-to-model skip from that one predicate read.
+With `pipeline_depth = d > 0` up to d frames are in flight: a frame is
+dispatched (its whole device program, the tracker's host reads included) and
+carried on from the tracker's host pose, and is finished — its packed finish
+vector read, its pose logged, its loop-closure decisions made — d frames
+later (`flush` finishes them all).  A closure or teleport applied at the
+finish of frame N rewrites the carried map and pose while frames
+N+1..N+d are in flight; those frames get the same rigid fix when they
+finish (`_pose_fixes`).  At depth 0 every frame finishes inside
+`process_frame`.  Device→host reads (`_device.host_reads` counts them) per
+frame: the tracker's (one per Gauss-Newton or SO(3) iteration), one of the
+packed finish vector, and with `closeLoops` one of the "inactive surfel
+exists" predicate plus, when the model-to-model solve runs, its tracker's
+reads.  Where the reference package decides on its device (`lax.cond`),
+this port decides on the host from values the host already holds: the
+tracking gates from the tracker's last read, the model-to-model skip from
+that one predicate read.
 
-Not ported yet — each raises `NotImplementedError` when asked for:
-multi-device maps (`mesh_shape`), host/device pipelining
-(`pipeline_depth > 0`), externally supplied poses after the first frame
-(`in_T_wc`), the u16 fixed-point tables (`fx16_tables`) and checkpoint
-restore.
+Externally supplied poses (`in_T_wc` after the first frame) fuse without
+tracking or loop closure, synchronously.  Not ported yet — each raises
+`NotImplementedError` when asked for: multi-device maps (`mesh_shape`), the
+u16 fixed-point tables (`fx16_tables`) and `fx16_clean` in `slam_step`.
 """
 
 from __future__ import annotations
 
+from collections import deque
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
@@ -491,6 +499,13 @@ class FrameResult:
         return 0 if self.count_dev is None else int(self.count_dev)
 
 
+def _host_tensor(a: np.ndarray) -> torch.Tensor:
+    """A frame array as a CPU tensor (copied when read-only, as a decoded
+    log's buffers are)."""
+    a = np.ascontiguousarray(a)
+    return torch.from_numpy(a if a.flags.writeable else a.copy())
+
+
 def _unported(flag: str, item: str):
     return NotImplementedError(
         f"{flag} is not ported to elasticfusion_tpu_torch yet (ROADMAP {item})")
@@ -505,8 +520,6 @@ class Engine:
                  device: DeviceLike = None):
         if cfg.mesh_shape is not None:
             raise _unported("mesh_shape (multi-device map)", "M11")
-        if cfg.pipeline_depth > 0:
-            raise _unported("pipeline_depth > 0", "M7")
         if cfg.fx16_tables:
             raise _unported("fx16_tables", "M12")
         self.cfg = cfg
@@ -525,8 +538,9 @@ class Engine:
         self.deforms = 0
         self.fern_deforms = 0
         # carried device state
-        self._T_f32 = None          # (4,4) f32 pose, kept on the host: the
-                                    # tracker reads it there and uploads it
+        self._T_f32 = None          # (4,4) f32 pose of the latest dispatched
+                                    # frame, kept on the host: the tracker
+                                    # reads it there and uploads it
         self._so3_hist = None       # prev frame coarsest intensity
         self._pred = None           # Prediction from end-of-last-frame predict()
         self._fill = None           # (vertex, normal, image) fill-in maps
@@ -540,6 +554,17 @@ class Engine:
         self._last_icp_count = 0.0
         self._last_tracking_ok = True
         self._last_fused = False
+        # pipeline
+        self._inflight: deque = deque()
+        self._seq = 0  # monotone dispatch counter (ticks repeat while lost)
+        # Pose corrections for frames that were IN FLIGHT when a closure (or
+        # teleport) rewrote the carried pose: (closure_seq, last_inflight_seq,
+        # 4x4 f64).  A finished frame's pose needs fix F iff it was dispatched
+        # after F's closure frame but before F was applied
+        # (closure_seq < seq <= last_inflight_seq); frames dispatched later
+        # carry the corrected pose already.  A fix applied outside its window
+        # double-corrects every later pose.
+        self._pose_fixes: List[Tuple[int, int, np.ndarray]] = []
         # loop-closure subsystems (ferns.py / deformation.py)
         self.ferns: Optional[Ferns] = None
         self.local_deformation: Optional[Deformation] = None
@@ -563,18 +588,19 @@ class Engine:
     # -- public knobs ---------------------------------------------------------
     @property
     def surfel_count(self) -> int:
+        self.flush()
         return 0 if self.map is None else int(self.map.count)
 
     @property
     def poses(self) -> List[Tuple[int, np.ndarray]]:
         """Timestamped (possibly deformation-corrected) trajectory."""
+        self.flush()
         return [(ts, T) for ts, (_, T) in zip(self.pose_times, self.tick_poses)]
 
     def flush(self) -> None:
-        """Frames finish inside `process_frame`; nothing is ever in flight."""
-
-    def restore_checkpoint(self, path: str) -> None:
-        raise _unported("checkpoint restore", "M10")
+        """Finish every in-flight frame (host reads + loop-closure logic)."""
+        while self._inflight:
+            self._finish(self._inflight.popleft())
 
     def _fern_inputs(self):
         """Fern tables and keyframe DB handed to the frame, or None."""
@@ -595,7 +621,7 @@ class Engine:
         sw = self.stopwatch
         sw.tick("Run")
         sw.tick("Preprocess")
-        rgb_d = torch.from_numpy(np.ascontiguousarray(rgb)).to(self.device)
+        rgb_d = _host_tensor(rgb).to(self.device)
         depth_d = torch.from_numpy(
             np.asarray(depth_mm).astype(np.float32)).to(self.device)
         sw.tock("Preprocess")
@@ -606,7 +632,15 @@ class Engine:
             return self._result()
 
         if in_T_wc is not None:
-            raise _unported("in_T_wc after the first frame (external poses)", "M7")
+            self._external_pose_frame(depth_d, rgb_d, timestamp,
+                                      weight_multiplier, in_T_wc)
+            sw.tock("Run")
+            return self._result()
+
+        # after a checkpoint restore there is no carried prediction yet:
+        # regenerate it from the restored map at the restored pose
+        if self._pred is None or self._T_f32 is None:
+            self._regenerate_carried(_preprocess(depth_d, cfg)[1], rgb_d)
 
         self._maybe_grow()
 
@@ -614,10 +648,12 @@ class Engine:
         # the frame finishes (the whole-map render it asks for already
         # happened in _teleport's _regenerate_carried)
         rec = dict(tick=self.tick, timestamp=timestamp, lost_at_dispatch=self.lost,
-                   recovery=self.last_frame_recovery)
+                   recovery=self.last_frame_recovery, seq=self._seq)
         self.last_frame_recovery = False
 
-        sw.tick("frame")
+        # "dispatch": the frame's device program (the tracker's reads
+        # included); "drain": finishing the frames older than pipeline_depth
+        sw.tick("dispatch")
         tick_dev = torch.tensor(float(self.tick), device=self.device)
         out = _frame_main(
             self.map, self._T_f32, self._so3_hist,
@@ -628,9 +664,13 @@ class Engine:
             self._fern_inputs(), cfg,
             do_compact=(self.tick % cfg.compact_every == 0),
         )
-        sw.tock("frame")
+        sw.tock("dispatch")
 
+        # the carried state advances at once; the next frame starts from the
+        # tracker's host pose (the same float32 values the finish vector
+        # holds), so nothing waits for this frame's finish
         self.map = out["map"]
+        self._T_f32 = torch.from_numpy(out["res"].host.T)
         self._so3_hist = out["so3"]
         self._pred = out["pred"]
         self._fill = out["fill"]
@@ -640,14 +680,17 @@ class Engine:
             self._views = out["views"]
             self._codes, self._good = out["codes"], out["good"]
 
-        sw.tick("finish")
         rec["out"] = out
-        self._finish(rec)
-        sw.tock("finish")
-        # the tick does not advance while lost (the reference advances it
-        # before finishing the frame; its closures use the frame's own tick)
-        if not rec["lost_at_dispatch"]:
+        self._inflight.append(rec)
+        self._seq += 1
+        # the tick does not advance while lost
+        if not self.lost:
             self.tick += 1
+
+        sw.tick("drain")
+        while len(self._inflight) > cfg.pipeline_depth:
+            self._finish(self._inflight.popleft())
+        sw.tock("drain")
         sw.tock("Run")
         return self._result()
 
@@ -685,13 +728,47 @@ class Engine:
             self.global_deformation.sample_graph_from(self.local_deformation)
         self.tick = 2
 
-    def _regenerate_carried(self):
-        """Re-render the carried prediction at the host pose from the latest
-        frame.  Right after a fern teleport the reference renders the WHOLE
-        map (combinedPredict time=0, maxTime=tick, ElasticFusion.cpp:624-631),
-        so the confirming frame has a full prediction to track against."""
+    def _external_pose_frame(self, depth_d, rgb_d, timestamp, weight_multiplier,
+                             in_T_wc):
+        """The ground-truth-pose path: no tracking, no loop closures (they
+        are pointless under supplied poses) — synchronous.  Like the
+        reference `_frame_main` (and unlike its external-pose path) it runs
+        `clean` on the exact float32 patch whatever `cfg.fx16_clean` says."""
         cfg = self.cfg
-        filt_m, rgb_d = self._last_frame
+        self.flush()
+        self._maybe_grow()
+        raw_m, filt_m = _preprocess(depth_d, cfg)
+        T_prev = self.T_wc.copy()
+        self.T_wc = np.asarray(in_T_wc, np.float64)
+        self._T_f32 = torch.from_numpy(self.T_wc.astype(np.float32))
+        self._so3_hist = _coarse_intensity(rgb_d, cfg)
+        # velocity-adaptive fusion weight on the host (cpp:371-383)
+        T_cp = np.linalg.inv(self.T_wc) @ T_prev
+        w = min(max(float(np.linalg.norm(T_cp[:3, 3])), _np_se3_log_norm(T_cp)), 0.01)
+        weighting = torch.tensor(max(1.0 - w / 0.01, 0.5) * weight_multiplier,
+                                 dtype=torch.float32, device=self.device)
+
+        tick_dev = torch.tensor(float(self.tick), device=self.device)
+        T_d = self._T_f32.to(self.device)
+        self.map, stats = _fuse_clean(
+            self.map, T_d, tick_dev, rgb_d, raw_m, filt_m, weighting, cfg, True)
+        self._pred, self._fill, self._dense_dev, self._views = _predict_only(
+            self.map, T_d, tick_dev, tick_dev, filt_m, rgb_d, False, cfg)
+        self._last_frame = (filt_m, rgb_d)
+        self._count_finished = int(read_back(stats.count))
+        self._last_fused = True
+        self.tick_poses.append((self.tick, self.T_wc.copy()))
+        self.pose_times.append(int(timestamp))
+        self.tick += 1
+
+    def _regenerate_carried(self, filt_m, rgb_d):
+        """Re-render the carried prediction at the host pose from a frame's
+        filtered depth and colour: after a fern teleport (the latest frame)
+        and after a checkpoint restore (the frame about to be tracked).
+        Right after a teleport the reference renders the WHOLE map
+        (combinedPredict time=0, maxTime=tick, ElasticFusion.cpp:624-631), so
+        the confirming frame has a full prediction to track against."""
+        cfg = self.cfg
         self._T_f32 = torch.from_numpy(self.T_wc.astype(np.float32))
         tick = float(self.tick)
         pred_time = 0.0 if self.last_frame_recovery else tick
@@ -702,12 +779,17 @@ class Engine:
         if self.ferns is not None:
             self._codes, self._good = fern_encode_device(
                 self._views[0], self._views[1], *self.ferns.encode_tables())
+        if self._so3_hist is None:
+            self._so3_hist = _coarse_intensity(rgb_d, cfg)
 
     def _maybe_grow(self):
         """Grow to the next capacity bucket before the tail can overflow,
-        judged on the last finished frame's exact count.  Worst case a
-        full-novel-view burst saturates fuse's append clamp for one frame;
-        the dropped measurements re-enter on the following frames."""
+        judged on the last finished frame's exact count (the first frame's
+        is read when the map is made, so no estimate is needed before the
+        first finish).  The frames in flight may each append up to H*W/4
+        more (fuse's measurement subsample); worst case a full-novel-view
+        burst saturates fuse's append clamp for them, and the dropped
+        measurements re-enter on the following frames."""
         cfg = self.cfg
         cap = self.map.capacity
         hw4 = (cfg.camera.width * cfg.camera.height) // 4
@@ -731,12 +813,18 @@ class Engine:
     def _finish(self, rec) -> None:
         """Host-side completion of one frame: one packed device read, pose log,
         relocalization state machine, fern DB, loop-closure decisions."""
+        sw = self.stopwatch
+        sw.tick("finish")
+        self._finish_frame(rec)
+        # frames finish in dispatch order: fixes fully behind us are drained
+        self._pose_fixes = [e for e in self._pose_fixes if rec["seq"] < e[1]]
+        sw.tock("finish")
+
+    def _finish_frame(self, rec) -> None:
         cfg = self.cfg
         out = rec["out"]
-        vec32 = read_back(out["finish_vec"])
-        self._T_f32 = torch.from_numpy(vec32[0:16].reshape(4, 4).copy())
-        vec = vec32.astype(np.float64)
-        self.T_wc = np_orthonormalize(vec[0:16].reshape(4, 4))
+        vec = read_back(out["finish_vec"]).astype(np.float64)
+        self.T_wc = self._fixed_pose(rec, vec[0:16].reshape(4, 4))
         self._last_icp_error = float(vec[16])
         self._last_icp_count = float(vec[17])
         tok = vec[18] != 0.0
@@ -799,6 +887,17 @@ class Engine:
             self.tracking_count = 0
         return tracking_ok
 
+    def _fixed_pose(self, rec, T: np.ndarray) -> np.ndarray:
+        """Apply (in closure order) every outstanding pose fix whose in-flight
+        window holds this frame's dispatch seq.  No pruning here: a frame
+        needs the same fixes for its own pose and its model-to-model
+        estimate; `_finish` prunes once the frame is done."""
+        seq = rec["seq"]
+        for cs, us, fix in self._pose_fixes:
+            if cs < seq <= us:
+                T = fix @ T
+        return np_orthonormalize(T)
+
     # -- loop closures ---------------------------------------------------------
 
     def _close_loops(self, rec, best_id, best_d, block_hd, codes, good,
@@ -821,7 +920,7 @@ class Engine:
         if self.ferns.last_closest != -1:
             if rec["lost_at_dispatch"]:
                 # teleport relocalization (cpp:411-413)
-                self._teleport(np_orthonormalize(np.asarray(recovery, np.float64)))
+                self._teleport(rec, np_orthonormalize(np.asarray(recovery, np.float64)))
                 return
             gd = self.global_deformation
             fern_time = self.ferns.closest_src_time()
@@ -851,7 +950,9 @@ class Engine:
         if not (m2m_cnt > cfg.icp_count_threshold
                 and m2m_err < cfg.icp_error_threshold):
             return
-        T_est = np_orthonormalize(np.asarray(m2m_T, np.float64))
+        # the estimate was made at dispatch: bring it into the corrected frame
+        # exactly like the frame's own pose
+        T_est = self._fixed_pose(rec, np.asarray(m2m_T, np.float64))
 
         # constraints from consSample-subsampled pixels (cpp:485-511)
         pv, ot = cons_pv, cons_ot
@@ -888,23 +989,28 @@ class Engine:
         """Apply an accepted closure: the rigid pose correction T_fix
         (world-frame left-multiply taking the closure frame's pose to its
         corrected one) plus the map deformation, via `_apply_closure` on the
-        carried state.  Its tick is the closure frame's: the reference's
-        `max(self.tick - 1, rec.tick)` with its tick advanced before the
-        finish."""
+        LATEST carried state (frames dispatched after the closure frame
+        included)."""
         T_fix = T_target @ np.linalg.inv(self.T_wc)
         self.T_wc = np_orthonormalize(T_target)
         # the closure frame's own logged pose becomes the corrected one
         # (currPose = estPose before the pose log, ElasticFusion.cpp:534+588)
         if self.tick_poses and self.tick_poses[-1][0] == rec["tick"]:
             self.tick_poses[-1] = (rec["tick"], self.T_wc.copy())
+        # frames still in flight were dispatched at pre-correction poses and
+        # get the same rigid fix when they finish; frames dispatched from now
+        # on carry the corrected pose (no fix — see _pose_fixes)
+        if self._inflight:
+            self._pose_fixes.append(
+                (rec["seq"], self._inflight[-1]["seq"], T_fix.copy()))
 
         filt_m, rgb_d = self._last_frame
-        tick_now = float(rec["tick"])
+        tick_now = float(max(self.tick - 1, rec["tick"]))
         T_fix32 = torch.from_numpy(T_fix.astype(np.float32))
         T_new = T_fix32 @ self._T_f32
         dev = self.device
         out = _apply_closure(
-            self.map, graph, T_fix32.to(dev), tick_now, T_new.to(dev),
+            self.map, graph, T_fix32.to(dev), float(rec["tick"]), T_new.to(dev),
             tick_now, tick_now, self.lost, filt_m, rgb_d,
             *self.ferns.encode_tables(), self.cfg, fern_accepted,
         )
@@ -916,13 +1022,59 @@ class Engine:
         self._views = out["views"]
         self._codes, self._good = out["codes"], out["good"]
 
-    def _teleport(self, T_rec: np.ndarray) -> None:
+    def _teleport(self, rec, T_rec: np.ndarray) -> None:
         """Lost-mode fern relocalization: jump to the recovery pose and
         regenerate the carried prediction there (ElasticFusion.cpp:411-413);
         the next well-conditioned frame confirms (cpp:348-364)."""
+        fix = T_rec @ np.linalg.inv(self.T_wc)
+        if self._inflight:
+            self._pose_fixes.append((rec["seq"], self._inflight[-1]["seq"], fix))
         self.T_wc = T_rec
         self.last_frame_recovery = True
-        self._regenerate_carried()
+        self._regenerate_carried(*self._last_frame)
+
+    # -- outputs ---------------------------------------------------------------
+
+    def save_trajectory(self, path, iclnuim: bool = False) -> None:
+        """The timestamped trajectory as a `.freiburg` file (flushes first)."""
+        from .io.trajectory import write_freiburg
+
+        write_freiburg(path, self.poses, iclnuim=iclnuim)
+
+    def export_map(self) -> Optional[SurfelMap]:
+        """The map after every in-flight frame has finished (one device: the
+        map itself)."""
+        self.flush()
+        return self.map
+
+    def save_ply(self, path) -> int:
+        """The confident surfels as a binary PLY; returns the vertex count."""
+        from .io.ply import save_ply
+
+        return save_ply(path, self.export_map(), self.cfg.confidence_threshold)
+
+
+def _np_se3_log_norm(T: np.ndarray) -> float:
+    """|log SE3| used by the fusion weight (Sophus log norm), on the host in
+    float64 — the external-pose path's variant."""
+    R = T[:3, :3]
+    cos_t = np.clip((np.trace(R) - 1.0) * 0.5, -1.0, 1.0)
+    theta = float(np.arccos(cos_t))
+    if theta < 1e-8:
+        w = np.zeros(3)
+        V_inv = np.eye(3)
+    else:
+        w = (
+            theta
+            / (2.0 * np.sin(theta))
+            * np.array([R[2, 1] - R[1, 2], R[0, 2] - R[2, 0], R[1, 0] - R[0, 1]])
+        )
+        K = np.array([[0, -w[2], w[1]], [w[2], 0, -w[0]], [-w[1], w[0], 0]]) / theta
+        half = theta * 0.5
+        cot = half / np.tan(half)
+        V_inv = np.eye(3) - 0.5 * theta * K + (1.0 - cot) * (K @ K)
+    v = V_inv @ T[:3, 3]
+    return float(np.sqrt(np.dot(v, v) + np.dot(w, w)))
 
 
 def _covariance_ok(A: np.ndarray, thresh: float = 1e-4) -> bool:

@@ -68,10 +68,26 @@ def run_reference_child(func: str, out_path, *args: str, timeout: float = 1200.0
     compiles in its own process instead, which keeps the suite just as safe
     from an XLA:CPU crash (it ends the child, and the run is tried once
     more) at the cost of one interpreter start."""
-    import os
     import pickle
     import subprocess
     import sys
+
+    code, env, cwd = _child_command(func)
+    for attempt in range(2):
+        out = subprocess.run([sys.executable, "-c", code, str(out_path), *args],
+                             cwd=cwd, env=env, capture_output=True,
+                             text=True, timeout=timeout)
+        if out.returncode == 0:
+            with open(out_path, "rb") as f:
+                return pickle.load(f)
+        if out.returncode > 0 or attempt == 1:
+            raise RuntimeError(f"reference run {func} failed:\n{out.stderr[-4000:]}")
+
+
+def _child_command(func: str):
+    """(code, environment, working directory) of a reference child running
+    `tests/<module>.py::<function>`."""
+    import os
 
     here = os.path.dirname(os.path.abspath(__file__))
     module, name = func.split(":")
@@ -88,12 +104,38 @@ def run_reference_child(func: str, out_path, *args: str, timeout: float = 1200.0
     env = dict(os.environ, JAX_PLATFORMS="cpu")
     env["PYTHONPATH"] = os.pathsep.join(
         [os.path.dirname(here), here, env.get("PYTHONPATH", "")])
-    for attempt in range(2):
-        out = subprocess.run([sys.executable, "-c", code, str(out_path), *args],
-                             cwd=os.path.dirname(here), env=env, capture_output=True,
-                             text=True, timeout=timeout)
-        if out.returncode == 0:
+    return code, env, os.path.dirname(here)
+
+
+class ReferenceChild:
+    """`run_reference_child` started in the background: the test process
+    runs the port while the child compiles and runs the reference, and
+    `result()` waits for it (a child killed by a signal is run once more, in
+    the foreground)."""
+
+    def __init__(self, func: str, out_path, *args: str, timeout: float = 1200.0):
+        import subprocess
+        import sys
+
+        self._call = (func, out_path, args, timeout)
+        code, env, cwd = _child_command(func)
+        # a file, not a pipe: nobody reads the child's stderr while it runs
+        self._err = open(str(out_path) + ".stderr", "w+")
+        self._proc = subprocess.Popen(
+            [sys.executable, "-c", code, str(out_path), *args], cwd=cwd, env=env,
+            stdout=subprocess.DEVNULL, stderr=self._err, text=True)
+
+    def result(self):
+        import pickle
+
+        func, out_path, args, timeout = self._call
+        self._proc.wait(timeout=timeout)
+        self._err.seek(0)
+        err = self._err.read()
+        self._err.close()
+        if self._proc.returncode == 0:
             with open(out_path, "rb") as f:
                 return pickle.load(f)
-        if out.returncode > 0 or attempt == 1:
-            raise RuntimeError(f"reference run {func} failed:\n{out.stderr[-4000:]}")
+        if self._proc.returncode > 0:
+            raise RuntimeError(f"reference run {func} failed:\n{err[-4000:]}")
+        return run_reference_child(func, out_path, *args, timeout=timeout)

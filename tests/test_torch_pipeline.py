@@ -1,0 +1,286 @@
+"""The port's pipelined engine (`pipeline_depth > 0`) on the CPU, on the
+scenarios of the reference package's `tests/test_pipeline.py` at 160x120:
+
+- the there-and-back run whose return closes loops locally, at depth 2
+  against depth 0 (that test's bounds: the closure is learnt 2 frames late
+  and repaired deferred), and at depth 2 against the reference engine at
+  depth 2 (run in a child interpreter: the same closures with the same
+  frames in flight; the pose gap is stated at the test);
+- the in-flight pose-fix windows (`_pose_fixes`): drained at depth 0 and
+  after a flush, and applied only inside their window;
+- fern-teleport relocalization after a blackout, at depth 0 and 2;
+- depth 0 carries, at every dispatch, exactly the pose the finish vector
+  holds, so moving the carried pose to the tracker's host result (and the
+  tick's advance to dispatch) changes no bit of a depth-0 run."""
+
+import pickle
+
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import SMALL_CAM, ReferenceChild, both_cams, rot_err
+from elasticfusion_tpu.utils.synthetic import make_scene, pose_from_xyzrpy, render_frame
+from elasticfusion_tpu_torch import engine as port_engine
+from elasticfusion_tpu_torch.config import CameraConfig as PortCam
+from elasticfusion_tpu_torch.config import EngineConfig as PortConfig
+
+# tests/test_pipeline.py:22-37
+CLOSURE = dict(max_surfels=1 << 17, confidence_threshold=0.3, time_delta=6,
+               icp_count_threshold=2000, icp_error_threshold=5e-4, cov_threshold=1e-4,
+               fern_min_age=1000, def_graph_sample_rate=500)
+# tests/test_pipeline.py:113-125
+RELOC = dict(max_surfels=1 << 17, confidence_threshold=0.3, reloc_mode=True,
+             fern_min_age=3, fern_inlier_count=100, lost_inlier_relax=50,
+             fern_threshold=0.12, fern_icp_error=2e-3)
+
+
+def _there_back(n=16):
+    """(rgb, depth_mm, timestamp, T) of tests/test_pipeline.py:40-45."""
+    ref_cam, _ = both_cams(SMALL_CAM)
+    scene = make_scene(n_side=700)
+    out = []
+    for i in range(n):
+        s = i if i < n // 2 else (n - i - 1)
+        T = pose_from_xyzrpy(x=0.035 * s, yaw=0.012 * s)
+        d, r = render_frame(scene[0], scene[1], T, ref_cam)
+        out.append((r, d, i * 33000, T))
+    return out
+
+
+def _drive(eng, frames):
+    """Run the frames, flush, and return the trajectory and, for every
+    accepted closure, its tick, its dispatch seq and the seqs in flight."""
+    closures = []
+    real = type(eng)._dispatch_closure
+
+    def logged(self, rec, *args, **kwargs):
+        closures.append((rec["tick"], rec["seq"], [r["seq"] for r in self._inflight]))
+        return real(self, rec, *args, **kwargs)
+    type(eng)._dispatch_closure = logged
+    try:
+        for r, d, ts, _ in frames:
+            eng.process_frame(r, d, timestamp=ts)
+        eng.flush()
+    finally:
+        type(eng)._dispatch_closure = real
+    return dict(poses=[(ts, np.asarray(T)) for ts, T in eng.poses], closures=closures,
+                deforms=eng.deforms, T_end=eng.T_wc.copy())
+
+
+def reference_depth2(out_path):
+    """The there-and-back run through the reference `Engine` at depth 2
+    (run by `ReferenceChild`)."""
+    from elasticfusion_tpu.config import EngineConfig as RefConfig
+    from elasticfusion_tpu.engine import Engine as RefEngine
+
+    ref_cam, _ = both_cams(SMALL_CAM)
+    eng = RefEngine(RefConfig(camera=ref_cam, pipeline_depth=2, **CLOSURE))
+    run = _drive(eng, _there_back())
+    with open(out_path, "wb") as f:
+        pickle.dump(run, f)
+
+
+def _port(depth, **kw):
+    cfg = PortConfig(camera=PortCam(**SMALL_CAM), pipeline_depth=depth, **kw)
+    return port_engine.Engine(cfg, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    child = ReferenceChild("test_torch_pipeline:reference_depth2",
+                           tmp_path_factory.mktemp("ref") / "depth2.pkl")
+    frames = _there_back()
+    out = {}
+    # depth 0, checking before every finish that the pose the next frame was
+    # dispatched from is the finish vector's, bit for bit
+    eng0 = _port(0, **CLOSURE)
+    carried = []
+    real_finish = port_engine.Engine._finish_frame
+
+    def check(self, rec):
+        fin = rec["out"]["finish_vec"][:16].reshape(4, 4)
+        carried.append(torch.equal(self._T_f32, fin))
+        return real_finish(self, rec)
+    port_engine.Engine._finish_frame = check
+    try:
+        out[0] = _drive(eng0, frames)
+    finally:
+        port_engine.Engine._finish_frame = real_finish
+    out[0].update(engine=eng0, carried=carried)
+    eng2 = _port(2, **CLOSURE)
+    out[2] = dict(_drive(eng2, frames), engine=eng2)
+    return out, child.result(), frames
+
+
+def test_depth2_agrees_with_depth0(runs):
+    """tests/test_pipeline.py:59-91: both close, per-frame translation gap
+    under 3 cm (the transient around the closure frames, learnt 2 frames
+    late; measured 21.3 mm), the last 3 frames under 1 cm on average
+    (measured 2.0 mm), both end under 6 cm from the truth."""
+    port, _, frames = runs
+    assert port[0]["deforms"] >= 1 and port[2]["deforms"] >= 1
+    p0 = [T for _, T in port[0]["poses"]]
+    p2 = [T for _, T in port[2]["poses"]]
+    assert len(p0) == len(p2) == len(frames)
+    diffs = [np.linalg.norm(a[:3, 3] - b[:3, 3]) for a, b in zip(p0, p2)]
+    assert max(diffs) < 0.03, max(diffs)
+    assert float(np.mean(diffs[-3:])) < 0.01, diffs[-3:]
+    for depth in (0, 2):
+        assert np.linalg.norm(port[depth]["T_end"][:3, 3] - frames[-1][3][:3, 3]) < 0.06
+
+
+def test_depth2_matches_reference_depth2(runs):
+    """The port at depth 2 against the reference at depth 2: the same
+    closures at the same ticks with the same frames in flight (so the same
+    pose-fix windows), the same timestamps; poses within 1e-3 m / 1e-3 rad
+    before the first closure (measured 0.04 mm), within 6e-3 from it on.
+
+    Depth 0 holds 3e-3 from the first closure on (`test_torch_closure.py`):
+    the two packages' maps differ by fusion decisions that XLA:CPU's fused
+    multiply-adds flip, so their model-to-model estimates differ (1.16 mm at
+    the first closure at either depth).  Depth 2 closes 5 times instead of
+    2 (ticks 7, 8, 9, 15, 16: it learns of a closure 2 frames late, and the
+    frames in flight close again), each closure's estimate differs by
+    0.9-2.5 mm / up to 4.9 mrad, and a frame in flight carries the fixes of
+    every closure behind it: measured 3.80 mm (tick 9, two fixes carried)
+    and 5.30 mrad (tick 16), ROADMAP Queue 3."""
+    port, ref, _ = runs
+    got = port[2]
+    assert got["closures"] == ref["closures"] and len(ref["closures"]) >= 1
+    assert got["deforms"] == ref["deforms"]
+    assert [ts for ts, _ in got["poses"]] == [ts for ts, _ in ref["poses"]]
+    first = ref["closures"][0][0]
+    for i, ((_, T), (_, rT)) in enumerate(zip(got["poses"], ref["poses"])):
+        tol = 6e-3 if i + 1 >= first else 1e-3         # frame i has tick i + 1
+        assert np.linalg.norm(T[:3, 3] - rT[:3, 3]) < tol, f"frame {i}"
+        assert rot_err(T, rT) < tol, f"frame {i}"
+
+
+def test_depth0_dispatches_from_the_finish_vector_pose(runs):
+    """The carried pose of every depth-0 dispatch is the tracker's host
+    result, bit-equal to the finish vector's pose that depth 0 used to carry:
+    the reordering leaves a depth-0 run bit for bit as it was."""
+    port, _, frames = runs
+    carried = port[0]["carried"]
+    assert len(carried) == len(frames) - 1 and all(carried)
+
+
+@pytest.mark.parametrize("depth", [0, 2])
+def test_pose_fixes_drain(runs, depth):
+    """No pose fix outlives the frames in flight when it was made: none at
+    depth 0 ever (nothing is in flight at a closure), none after a flush at
+    depth 2."""
+    port, _, _ = runs
+    assert port[depth]["engine"]._pose_fixes == []
+    assert port[depth]["engine"]._inflight == type(port[depth]["engine"]._inflight)()
+
+
+def test_pose_fix_applies_only_inside_its_window():
+    """`_fixed_pose`: a fix made at the finish of dispatch seq 3 with seqs
+    4..5 in flight corrects those two and no other; `_finish` prunes it once
+    seq 5 has finished (the reference's r2 double-correction bug applied
+    such a fix to every later frame)."""
+    eng = _port(2, closeLoops=False)
+    fix = np.eye(4)
+    fix[:3, 3] = [0.1, 0.0, 0.0]
+    eng._pose_fixes = [(3, 5, fix)]
+    T = np.eye(4)
+    moved = [float(eng._fixed_pose(dict(seq=s), T)[0, 3]) for s in range(2, 8)]
+    assert moved == [0.0, 0.0, 0.1, 0.1, 0.0, 0.0]
+    eng._finish_frame = lambda rec: None
+    eng._finish(dict(seq=4))
+    assert len(eng._pose_fixes) == 1
+    eng._finish(dict(seq=5))
+    assert eng._pose_fixes == []
+
+
+def _teleport_frames():
+    ref_cam, _ = both_cams(SMALL_CAM)
+    scene = make_scene(n_side=700)
+    views = []
+    for i in range(8):
+        T = pose_from_xyzrpy(x=0.03 * i, yaw=0.01 * i)
+        d, r = render_frame(scene[0], scene[1], T, ref_cam)
+        views.append((T, d, r))
+    return views
+
+
+@pytest.mark.parametrize("depth", [0, 2])
+def test_fern_teleport_recovery(depth):
+    """tests/test_pipeline.py:105-155: lost after a blackout, a revisit of a
+    fern keyframe teleports, one more frame confirms; at both depths (the
+    recovery flag rides in the frame's record, not on the engine)."""
+    eng = _port(depth, **RELOC)
+    views = _teleport_frames()
+    for i, (_, d, r) in enumerate(views):
+        eng.process_frame(r, d, timestamp=i)
+    eng.flush()
+    assert not eng.lost and len(eng.ferns.frames) >= 1
+    blank_d, blank_r = np.zeros_like(views[0][1]), np.zeros_like(views[0][2])
+    for i in range(14):
+        eng.process_frame(blank_r, blank_d, timestamp=100 + i)
+    eng.flush()
+    assert eng.lost
+    T0, d0, r0 = views[0]
+    for i in range(4 + depth):
+        eng.process_frame(r0, d0, timestamp=200 + i)
+        eng.flush()
+        if not eng.lost:
+            break
+    assert not eng.lost, "stayed lost after revisiting a fern keyframe"
+    assert np.linalg.norm(eng.T_wc[:3, 3] - T0[:3, 3]) < 0.05
+    assert eng._pose_fixes == []
+
+
+def depth_log(which: str, depth: str, n_out: str = "8", out: str = "") -> None:
+    """Run by hand, not collected: the there-and-back run with `n_out`
+    frames out and as many back through one package ("ref" or "port") at
+    one pipeline depth, on the CPU at 160x120.  Prints every closure (tick,
+    the frame's pose and its model-to-model estimate) and every frame's
+    error against the truth; with `out`, pickles the trajectory.  n_out=8 is
+    `tests/test_pipeline.py`'s run; n_out=12 with `chip_smoke.py`'s scene
+    (n_side 1400) and sizes is phase 5/6 (b)'s run at 160x120:
+    PYTHONPATH=. JAX_PLATFORMS=cpu python -c "import sys; sys.path.insert(0, 'tests');
+    import test_torch_pipeline as t; t.depth_log('ref', '2', '12')"
+    (the reference takes ~8 minutes)."""
+    n_out, depth = int(n_out), int(depth)
+    ref_cam, port_cam = both_cams(SMALL_CAM)
+    kw = dict(CLOSURE, pipeline_depth=depth)
+    if n_out != 8:
+        kw.update(initial_surfels=1 << 19, max_surfels=1 << 21)
+    if which == "ref":
+        import jax
+
+        jax.config.update("jax_platforms", "cpu")
+        from elasticfusion_tpu.config import EngineConfig as RefConfig
+        from elasticfusion_tpu.engine import Engine as RefEngine
+
+        eng = RefEngine(RefConfig(camera=ref_cam, **kw))
+    else:
+        eng = port_engine.Engine(PortConfig(camera=port_cam, **kw), device="cpu")
+    real = type(eng)._close_loops
+
+    def logged(self, rec, *args):
+        before, T = self.deforms, self.T_wc.copy()
+        real(self, rec, *args)
+        if self.deforms > before:
+            print(f"closure at tick {rec['tick']}: pose {np.round(T[:3, 3], 5)}, "
+                  f"model-to-model estimate {np.round(np.asarray(args[5])[:3, 3], 5)}",
+                  flush=True)
+    type(eng)._close_loops = logged
+    scene = make_scene(n_side=700 if n_out == 8 else 1400)
+    gt = []
+    for i in range(2 * n_out):
+        s = i if i < n_out else 2 * n_out - i - 1
+        T = pose_from_xyzrpy(x=0.035 * s, yaw=0.012 * s)
+        gt.append(T)
+        d, r = render_frame(scene[0], scene[1], T, ref_cam)
+        eng.process_frame(r, d, timestamp=i)
+    eng.flush()
+    traj = [np.asarray(T) for _, T in eng.poses]
+    print("error against the truth (mm): " + " ".join(
+        f"{np.linalg.norm(T[:3, 3] - g[:3, 3]) * 1e3:.1f}" for T, g in zip(traj, gt)))
+    if out:
+        with open(out, "wb") as f:
+            pickle.dump(traj, f)

@@ -2,8 +2,8 @@
 through the reference `slam_step` and the port's, both started from the same
 converted state; the port's `Engine.process_frame` against its own
 `slam_step` chain; and the rules around the slice (flags that raise, the
-loop-closure configurations that run, no CPU fall-back, nothing of JAX
-imported by the port).
+loop-closure and pipelined configurations, external poses and checkpoints
+that run, no CPU fall-back, nothing of JAX imported by the port).
 
 Held against the reference's `slam_step` with `fx16_clean=False`: the port
 has the exact float32 `clean` only, and its `slam_step` raises when the flag
@@ -160,13 +160,42 @@ def test_engine_grows_the_map_before_it_overflows(frames):
 
 @pytest.mark.parametrize("flags,item", [
     (dict(mesh_shape=(2,)), "M11"),
-    (dict(pipeline_depth=2), "M7"),
     (dict(fx16_tables=True), "M12"),
 ])
 def test_unported_flags_raise(flags, item):
     cfg = PortConfig(**{"closeLoops": False, **flags})
     with pytest.raises(NotImplementedError, match=item):
         port_engine.Engine(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("flags", [dict(), dict(reloc_mode=True)],
+                         ids=["closeLoops", "reloc_mode"])
+def test_pipelined_configs_construct_and_run(frames, flags):
+    """`pipeline_depth=2` with the default `closeLoops` and with
+    `reloc_mode`: two frames stay in flight until `flush` finishes them, and
+    with nothing to close the poses and the map equal depth 0's bit for
+    bit."""
+    _, port_cam, poses, rendered = frames
+    engines = {}
+    for depth in (0, 2):
+        eng = port_engine.Engine(
+            PortConfig(camera=port_cam, pipeline_depth=depth, **flags), device="cpu")
+        for i, (d, rgb) in enumerate(rendered):
+            eng.process_frame(rgb, d, timestamp=i)
+        engines[depth] = eng
+    eng = engines[2]
+    assert len(eng._inflight) == 2 and len(eng.tick_poses) == N_FRAMES - 2
+    assert eng.tick == N_FRAMES + 1                   # the tick advances at dispatch
+    eng.flush()
+    assert not eng._inflight and [ts for ts, _ in eng.poses] == list(range(N_FRAMES))
+    for (_, T), (_, T0) in zip(eng.poses, engines[0].poses):
+        assert np.array_equal(T, T0)
+    assert eng.surfel_count == engines[0].surfel_count
+    assert torch.equal(eng.map.pos, engines[0].map.pos)
+    # a frame is scored against the keyframe DB as it stood at its dispatch,
+    # so frames dispatched before the first keyframe was added become
+    # keyframes too (as in the reference at depth 2)
+    assert len(eng.ferns.frames) >= len(engines[0].ferns.frames) >= 1
 
 
 @pytest.mark.parametrize("flags", [dict(), dict(reloc_mode=True)],
@@ -191,14 +220,42 @@ def test_unported_entry_points_raise(frames):
     cfg = PortConfig(camera=port_cam, closeLoops=False)
     eng = port_engine.Engine(cfg, device="cpu")
     d, rgb = rendered[0]
-    eng.process_frame(rgb, d, in_T_wc=poses[0])          # allowed on the first frame
-    with pytest.raises(NotImplementedError, match="in_T_wc"):
-        eng.process_frame(rgb, d, in_T_wc=poses[1])
-    with pytest.raises(NotImplementedError, match="M10"):
-        eng.restore_checkpoint("nowhere.npz")
+    eng.process_frame(rgb, d, in_T_wc=poses[0])
     with pytest.raises(NotImplementedError, match="fx16_clean"):   # default cfg sets it
         port_engine.slam_step(eng.map, None, None, None, None, None, None, None, 2.0,
                               1.0, cfg)
+
+
+def test_external_poses_after_the_first_frame_run(frames):
+    """`in_T_wc` on every frame: the given poses come back, the map fuses,
+    no frame is tracked."""
+    _, port_cam, poses, rendered = frames
+    eng = port_engine.Engine(PortConfig(camera=port_cam, closeLoops=False), device="cpu")
+    counts = []
+    for i, (d, rgb) in enumerate(rendered):
+        res = eng.process_frame(rgb, d, timestamp=i, in_T_wc=poses[i])
+        np.testing.assert_allclose(res.T_wc, poses[i], rtol=0, atol=1e-9)
+        counts.append(res.surfel_count)
+    assert res.fused and eng.tick == N_FRAMES + 1 and counts[-1] > counts[0]
+
+
+def test_checkpoint_restores_and_tracks_on(frames, tmp_path):
+    """`save_checkpoint` after two frames, `load_checkpoint` on the CPU,
+    then the last two frames through the restored engine."""
+    from elasticfusion_tpu_torch.checkpoint import load_checkpoint, save_checkpoint
+
+    _, port_cam, poses, rendered = frames
+    cfg = PortConfig(camera=port_cam, **CFG)
+    eng = port_engine.Engine(cfg, device="cpu")
+    for i, (d, rgb) in enumerate(rendered[:2]):
+        eng.process_frame(rgb, d, timestamp=i, in_T_wc=poses[0] if i == 0 else None)
+    save_checkpoint(tmp_path / "ck.npz", eng)
+    eng2 = load_checkpoint(tmp_path / "ck.npz", cfg, device="cpu")
+    assert eng2.tick == eng.tick and eng2.surfel_count == eng.surfel_count
+    for i, (d, rgb) in enumerate(rendered[2:], start=2):
+        eng2.process_frame(rgb, d, timestamp=i)
+    assert [ts for ts, _ in eng2.poses] == list(range(N_FRAMES))
+    assert np.linalg.norm(eng2.T_wc[:3, 3] - poses[-1][:3, 3]) < 5e-3
 
 
 def test_engine_needs_a_card_unless_the_cpu_is_asked_for():
@@ -214,6 +271,8 @@ def test_port_imports_neither_jax_nor_the_reference_package():
         "import elasticfusion_tpu_torch\n"
         "import elasticfusion_tpu_torch.engine, elasticfusion_tpu_torch.convert\n"
         "import elasticfusion_tpu_torch.utils.synthetic, elasticfusion_tpu_torch.utils.stopwatch\n"
+        "import elasticfusion_tpu_torch.checkpoint, elasticfusion_tpu_torch.io\n"
+        "from elasticfusion_tpu_torch.tools import camera, eval_suite, report, run_slam, view_map\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'elasticfusion_tpu' or m.startswith('elasticfusion_tpu.')]\n"
         "assert not bad, bad\n"

@@ -53,6 +53,23 @@ def test_imports_neither_jax_nor_the_jax_package(path):
         assert not FORBIDDEN & set(roots), f"{path}:{node.lineno} imports {roots}"
 
 
+def test_the_scan_covers_io_tools_and_checkpoint():
+    rel = {os.path.relpath(p, PKG) for p in _python_sources()}
+    assert {"checkpoint.py", "io/klg.py", "io/ply.py", "io/trajectory.py", "io/tum.py",
+            "io/groundtruth.py", "tools/run_slam.py", "tools/eval_suite.py",
+            "tools/camera.py", "tools/report.py", "tools/view_map.py"} <= rel
+
+
+@pytest.mark.parametrize("path", _python_sources(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_reads_no_native_decoder(path):
+    """The port's `.klg` reader decodes in Python: no module loads the
+    reference's native decoder library."""
+    with open(path, encoding="utf-8") as f:
+        text = f.read()
+    assert "libefklg" not in text and "klg_decoder" not in text
+
+
 def _kernel_function_calls(module):
     """(enclosing function, source name, symbol) of every
     `kernel_function("<source>", "<symbol>", ...)` call of a wrapper module."""
