@@ -46,9 +46,21 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      for the regenerated prediction, tracks on); (e) external poses; (f)
      one configuration of `eval_suite -quick -synth-only`, into a temporary
      directory;
-  7. one JSON line `{"kernels": [...]}` (entries with `caller` are the
+  7. the slice of the sharded map and multi-process runs at 640x480, each
+     run read with the counts set to 0 just before it: (a) the native `.klg`
+     decoder on the committed JPEG-colour log (depth bit-identical to the
+     Python zlib path, colour against the committed PIL decode) and
+     `run_slam` on it; (b) `slam_step` at the default `EngineConfig` (fx16
+     clean) on 12 sweep frames; (c) the sharded engine on `bench.py`'s
+     configuration at depth 0 and 2 through one growth: S = 1 bit-identical
+     to one device, S = 2 on one card within the reference's bounds, K2 and
+     K3 held against their plain versions at the sharded callers, with
+     collectives, launches and ms per frame; (d) loop closures on sub-maps;
+     (e) two `run_slam -mesh 2` ranks over gloo on the card, their
+     trajectories equal to the one-process run's;
+  8. one JSON line `{"kernels": [...]}` (entries with `caller` are the
      model-to-model and fern-ICP runs of the tracking steps);
-  8. last line `{"ok": true, "device": {...}}`.
+  9. last line `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -60,8 +72,10 @@ import subprocess
 import sys
 import time
 
-import numpy as np
-import torch
+T_PROCESS = time.perf_counter()     # before torch and the port are imported
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 if not torch.cuda.is_available():
     sys.stderr.write("chip_smoke: no CUDA device; this script runs on the card only\n")
@@ -1346,6 +1360,354 @@ def phase_pipeline(cam, frames, gt_poses, p5) -> None:
             print(f"  eval_suite: {ln} [{smi}]", flush=True)
 
 
+# --- phase 7: the native decoder, fx16 clean, the sharded map, processes -----
+
+FIXTURE_KLG = "tests/data/sweep_jpeg.klg"        # tests/data/make_jpeg_klg.py
+FIXTURE_ROWS = "tests/data/sweep_jpeg_rows.npz"
+# (a): colour against the committed PIL (libjpeg) decode: max |level|, and
+# share of values off by more than one level.  libjpeg's own decode agrees
+# to the level; the card's machine has no libjpeg, and nvJPEG's inverse DCT
+# rounds differently from libjpeg's (its colour stage is libjpeg's): on the
+# H100 it decoded the fixture within 3 levels, 0.41 % of values beyond 1
+JPEG_TOL = {"libjpeg": (1, 0.0), "nvJPEG": (4, 0.01)}
+N_SHARD = 12                  # sweep frames of (c)
+GROW_BEFORE = 6               # (c): the growth trigger is set before this frame
+# (c): the reference's bounds for S > 1 against one shard
+# (tests/test_shard_step.py:89-116, tests/test_parallel.py:72-89)
+MAX_SHARD_TRANS_M = 1e-3
+MAX_SHARD_ROT = 1e-3          # largest element of the rotation blocks' difference
+MAX_SHARD_COUNT_FRAC = 0.01
+MAX_SHARD_DEPTH_MEDIAN_M = 1e-4
+
+
+def klg_depths(path: str):
+    """Every frame's depth of a .klg by Python's zlib, read with struct: the
+    Python decode path of the depth (its colour needs PIL)."""
+    import struct
+    import zlib
+
+    out = []
+    with open(path, "rb") as f:
+        (n,) = struct.unpack("<i", f.read(4))
+        for _ in range(n):
+            _, ds, i_s = struct.unpack("<qii", f.read(16))
+            out.append(np.frombuffer(zlib.decompress(f.read(ds)), np.uint16))
+            f.seek(i_s, 1)
+    return out
+
+
+def run_decoder(tmp):
+    """(a): the committed JPEG-colour log through the native decoder and
+    through run_slam."""
+    import contextlib
+    import io as _io
+    import os
+
+    from elasticfusion_tpu_torch.io import klg
+    from elasticfusion_tpu_torch.tools import run_slam
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    path = os.path.join(here, FIXTURE_KLG)
+    rows = np.load(os.path.join(here, FIXTURE_ROWS))
+    step = int(rows["row_step"])
+    which = klg.decoder_in_use()
+    out = dict(decoder=which, native=klg._native_lib() is not None, n=0,
+               depth_equal=False, rgb_err=256, rgb_off=1.0, rc=-1, stats={},
+               traj_lines=0, decode_ms=float("nan"),
+               variant=_build.host_variant("klg_decoder"))
+    if not out["native"]:
+        return out
+    t0 = time.perf_counter()
+    frames = list(klg.NativeKlgLogReader(path))
+    out["decode_ms"] = (time.perf_counter() - t0) * 1e3 / len(frames)
+    depths = klg_depths(path)
+    out["depth_equal"] = len(frames) == len(depths) and all(
+        np.array_equal(f.depth_mm.reshape(-1), d) for f, d in zip(frames, depths))
+    diff = np.stack([np.abs(f.rgb[::step].astype(np.int32) - r)
+                     for f, r in zip(frames, rows["rows"])])
+    out["rgb_err"], out["rgb_off"] = int(diff.max()), float((diff > 1).mean())
+    out["n"] = len(frames)
+    buf = _io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out["rc"] = run_slam.main(["-l", path, "-c", "0.3", "-o", f"{tmp}/jpeg",
+                                   "-device", str(DEV)])
+    out["stats"] = json.loads(buf.getvalue().strip().splitlines()[-1])
+    out["traj_lines"] = len(open(f"{tmp}/jpeg.freiburg").read().splitlines())
+    return out
+
+
+def run_slam_step(cam, frames, gt_poses, cfg):
+    """(b): the first frame's state, then `slam_step` on N_SHARD sweep frames."""
+    from elasticfusion_tpu_torch.engine import (
+        _coarse_intensity,
+        _init_map,
+        _predict_only,
+        _preprocess,
+        slam_step,
+    )
+
+    d, r = frames[0]
+    depth = torch.from_numpy(d.astype(np.float32)).to(DEV)
+    rgb = torch.from_numpy(r).to(DEV)
+    raw_m, filt_m = _preprocess(depth, cfg)
+    m = _init_map(raw_m, filt_m, rgb, cfg, 1 << 19)
+    T = torch.from_numpy(np.asarray(gt_poses[0], np.float32)).to(DEV)
+    _, fill, _, _ = _predict_only(m, T, 1.0, 1.0, filt_m, rgb, False, cfg)
+    so3 = _coarse_intensity(rgb, cfg)
+    for i in range(1, N_SHARD):
+        d, r = frames[i]
+        m, T, so3, fill, _, _, _ = slam_step(
+            m, T, so3, *fill, torch.from_numpy(d.astype(np.float32)).to(DEV),
+            torch.from_numpy(r).to(DEV), float(i + 1), 1.0, cfg)
+    torch.cuda.synchronize()
+    return dict(T=T.cpu().numpy().astype(np.float64), count=int(m.count))
+
+
+def run_sharded(frames, cfg):
+    """(c): N_SHARD sweep frames, the growth trigger set before GROW_BEFORE
+    (as when the fullest shard nears capacity); per-frame poses, counts,
+    collectives, ms/frame after the growth.  A sharded map holds all its
+    sub-maps on this card."""
+    eng = Engine(cfg, device=DEV)
+    calls, t0 = 0, None
+    for i in range(N_SHARD):
+        if i == GROW_BEFORE:
+            S = eng.group.S if eng.group else 1
+            cap_l = eng.map.capacity // S
+            eng._count_finished = int(0.9 * cap_l) * S
+            eng._count_max_finished = int(0.9 * cap_l)
+        if i == GROW_BEFORE + 1:
+            torch.cuda.synchronize()
+            t0, calls = time.perf_counter(), (eng.group.total_calls if eng.group else 0)
+        d, r = frames[i]
+        eng.process_frame(r, d, timestamp=i)
+    eng.flush()
+    torch.cuda.synchronize()
+    n_timed = N_SHARD - GROW_BEFORE - 1
+    ms = (time.perf_counter() - t0) / n_timed * 1e3
+    traj = np.stack([T for _, T in eng.poses])
+    calls = ((eng.group.total_calls if eng.group else 0) - calls) / n_timed
+    return dict(traj=traj, count=eng.surfel_count, ms=ms, calls=calls, engine=eng,
+                capacity=eng.map.capacity)
+
+
+def same_pose_depth_median(a, b) -> float:
+    """Both engines' maps rendered at a's last pose: median |depth a - b|."""
+    cfg = a.cfg
+    T = torch.from_numpy(a.T_wc.astype(np.float32)).to(DEV)
+    tick = float(a.tick - 1)
+    da, db = (engine_mod._combined_predict(e.map, T, tick, tick, cfg.time_delta, cfg)
+              .depth.cpu().numpy() for e in (a, b))
+    both = (da > 0) & (db > 0)
+    return float(np.median(np.abs(da[both] - db[both])))
+
+
+def run_two_ranks(cam, frames, tmp):
+    """(e): the sweep as a .klg, `run_slam -mesh 2` as two processes over
+    gloo sharing this card, and as one process."""
+    import os
+    import socket
+
+    from elasticfusion_tpu_torch.io import write_klg
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    log = f"{tmp}/sweep12.klg"
+    write_klg(log, [(1_000_000 + 33_333 * i, d, r) for i, (d, r) in
+                    enumerate(frames[:N_SHARD])])
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    with open(f"{tmp}/cal.txt", "w") as f:
+        f.write(f"{cam.fx} {cam.fy} {cam.cx} {cam.cy}\n")
+    base = [sys.executable, "-m", "elasticfusion_tpu_torch.tools.run_slam", "-l", log,
+            "-res", f"{cam.width}x{cam.height}", "-cal", f"{tmp}/cal.txt", "-c", "0.3",
+            "-mesh", "2", "-device", "cuda:0" if DEV.type == "cuda" else str(DEV)]
+    env = dict(os.environ, PYTHONPATH=here)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        base + ["-o", f"{tmp}/rank{r}", "-dist-coordinator", f"127.0.0.1:{port}",
+                "-dist-nprocs", "2", "-dist-rank", str(r)],
+        cwd=here, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in (0, 1)]
+    one = subprocess.run(base + ["-o", f"{tmp}/one"], cwd=here, env=env,
+                         capture_output=True, text=True, timeout=300)
+    outs = []
+    for p in procs:
+        try:
+            outs.append(p.communicate(timeout=300)[0])
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            raise
+    wall = time.perf_counter() - t0
+    read = lambda n: open(f"{tmp}/{n}.freiburg").read() if os.path.exists(  # noqa: E731
+        f"{tmp}/{n}.freiburg") else None
+    return dict(rcs=[p.returncode for p in procs] + [one.returncode], outs=outs,
+                one=one.stdout + one.stderr, traj=[read("rank0"), read("rank1"), read("one")],
+                wall=wall)
+
+
+def phase_sharded(cam, frames, gt_poses, entries) -> None:
+    """Phase 7 at 640x480, each run read with the counts set to 0 just before
+    it: (a) the native .klg decoder on a JPEG-colour log and run_slam on it;
+    (b) slam_step at the default EngineConfig (fx16 clean); (c) the sharded
+    map on bench.py's configuration, S = 1 against one device and S = 2 on
+    one card against the reference's bounds, with K2 and K3 held against
+    their plain versions at the sharded callers; (d) loop closures on
+    sub-maps; (e) two run_slam ranks over gloo on this card."""
+    import tempfile
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(f"== 7. native decoder, fx16 clean, sharded map, processes at 640x480 ({smi})",
+          flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a)
+        a = run_decoder(tmp)
+        print(f"  7(a) decoder: {a['decoder']}", flush=True)
+        check(a["native"], "7(a) the native .klg decoder built on this machine")
+        check(a["n"] == 2 and a["depth_equal"],
+              f"7(a) {a['n']} frames decoded; depth bit-identical to the Python zlib path")
+        tol, share = JPEG_TOL.get(a["variant"], (1, 0.0))
+        check(a["rgb_err"] <= tol and a["rgb_off"] <= share,
+              f"7(a) JPEG colour ({a['variant']}) within {a['rgb_err']} level(s) of the "
+              f"committed PIL decode, {a['rgb_off'] * 100:.2f} % of values beyond one "
+              f"level (tolerance {tol} levels, {share * 100:.0f} %; 0 levels = exact)")
+        check(a["rc"] == 0 and a["traj_lines"] == 2
+              and a["stats"].get("klg_decoder", "").startswith("native"),
+              f"7(a) run_slam -l on the JPEG log: exit {a['rc']}, {a['traj_lines']} poses, "
+              f"decoder {a['stats'].get('klg_decoder')}")
+        print(f"  7(a) native decode {a['decode_ms']:.2f} ms/frame [{smi}]", flush=True)
+
+        # (b)
+        cfg_b = EngineConfig(camera=cam, initial_surfels=1 << 19, max_surfels=1 << 21,
+                             confidence_threshold=0.3)
+        check(cfg_b.fx16_clean, "7(b) the default EngineConfig sets fx16_clean")
+        (bx, launches_b, _) = counted(lambda _: run_slam_step(cam, frames, gt_poses, cfg_b))
+        check_launched("7(b) slam_step, fx16 clean", launches_b, FRAME_KERNELS)
+        be = run_slam_step(cam, frames, gt_poses, cfg_b.with_(fx16_clean=False))
+        terr, rerr = pose_error(bx["T"], gt_poses[N_SHARD - 1])
+        check(terr < MAX_TRANS_ERR_M and rerr < MAX_ROT_ERR_DEG,
+              f"7(b) slam_step at the default config: pose error after {N_SHARD} frames "
+              f"{terr * 1e3:.2f} mm / {rerr:.3f} deg (phase 4's bounds)")
+        print(f"  7(b) surfels: fx16 clean {bx['count']}, exact clean {be['count']} "
+              f"({bx['count'] - be['count']:+d})", flush=True)
+
+        # (c)
+        cfg_c = bench_config(cam)
+        cap = {}
+        for depth in (0, 2):
+            cfg = cfg_c.with_(pipeline_depth=depth)
+            one = run_sharded(frames, cfg)
+            s1 = run_sharded(frames, cfg.with_(fx16_clean=False, mesh_shape=(1,)))
+            check(one["capacity"] > (1 << 19) and s1["capacity"] == one["capacity"],
+                  f"7(c) depth {depth}: the map grew to {one['capacity']} surfels")
+            check(np.array_equal(one["traj"], s1["traj"]) and one["count"] == s1["count"],
+                  f"7(c) depth {depth}: S=1 bit-identical to the one-device engine")
+
+            def drive(_):
+                with StepRecorder(cap):
+                    return run_sharded(frames, cfg.with_(mesh_shape=(2,)))
+            s2, launches_c, _ = counted(drive)
+            check_launched(f"7(c) S=2 depth {depth}", launches_c, FRAME_KERNELS)
+            trans = max(float(np.linalg.norm(p[:3, 3] - q[:3, 3]))
+                        for p, q in zip(one["traj"], s2["traj"]))
+            rot = max(float(np.abs(p[:3, :3] - q[:3, :3]).max())
+                      for p, q in zip(one["traj"], s2["traj"]))
+            med = same_pose_depth_median(one["engine"], s2["engine"])
+            frac = abs(s2["count"] - one["count"]) / one["count"]
+            check(trans < MAX_SHARD_TRANS_M and rot < MAX_SHARD_ROT
+                  and frac < MAX_SHARD_COUNT_FRAC and med < MAX_SHARD_DEPTH_MEDIAN_M,
+                  f"7(c) depth {depth}: S=2 (fx16 clean) against one device (exact "
+                  f"clean): poses within {trans * 1e3:.3f} mm and {rot:.2e} in rotation, "
+                  f"counts {s2['count']} / {one['count']}, median depth {med:.2e} m at "
+                  f"the same pose (bounds 1 mm, 1e-3, 1 %, 1e-4 m)")
+            per = N_SHARD - 1
+            print(f"  7(c) depth {depth}: ms/frame S=2 {s2['ms']:.2f}, S=1 {s1['ms']:.2f}, "
+                  f"one device {one['ms']:.2f}; collectives per frame S=2 "
+                  f"{s2['calls']:.1f}, S=1 {s1['calls']:.1f}; per tracked frame S=2 "
+                  f"splat_resolve {launches_c['splat_resolve'] / per:.2f}, fuse_window "
+                  f"{launches_c['fuse_window'] / per:.2f} [{smi}]", flush=True)
+            if depth == 0:
+                k2_launches, k3_launches = (launches_c["splat_resolve"],
+                                            launches_c["fuse_window"])
+
+        # K2 / K3 at the sharded callers: the last merged raster's resolve and
+        # the last shard's fuse window of the S=2 run
+        H, W = cam.height, cam.width
+        HW = H * W
+        chan, fx, fy, cx, cy = cap["splat_resolve"]
+        got, plain = splat_resolve(chan, fx, fy, cx, cy), splat_resolve_plain(chan, fx, fy,
+                                                                              cx, cy)
+        bad = int((~torch.isclose(got, plain, rtol=1e-5, atol=1e-5)).any(dim=0).sum())
+        k2_err = float((got - plain).abs().max())
+        check(bad <= HW // 10000, f"7(c) K2 at the sharded combinedPredict vs plain: {bad} "
+              f"pixels beyond 1e-5, max |err| {k2_err:.3e}")
+        b_ms, b_by = bound(26 * HW * 4, 25 * 2 * 40.0 * HW)
+        entries[("splat_resolve", "sharded")] = dict(
+            name="splat_resolve", route="cuda", caller="sharded S=2 combinedPredict",
+            source="elasticfusion_tpu_torch/csrc/splat_resolve.cu",
+            replaces="elasticfusion_tpu/ops/splat_pallas.py:41", max_abs_err=k2_err,
+            ms=time_ms(lambda: splat_resolve(chan, fx, fy, cx, cy), queue_first=True),
+            plain_ms=time_ms(lambda: splat_resolve_plain(chan, fx, fy, cx, cy), reps=5,
+                             warm=1),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None, launches=k2_launches,
+            launches_per_frame=k2_launches / (N_SHARD - 1))
+        chan3, params, fx, fy, cx, cy, kcap = cap["fuse_window"]
+        got = fuse_window(chan3, params, fx, fy, cx, cy, kcap)
+        plain = fuse_window_plain(chan3, params, fx, fy, cx, cy, kcap)
+        k3_err = float((got - plain).abs().max())
+        check(torch.equal(got, plain) and int((got[3] > 0).sum()) > HW // 30,
+              f"7(c) K3 at a shard's fuse (global ids, id limit {kcap:.0f}) bit-identical "
+              f"to plain ({int((got[3] > 0).sum())} matched)")
+        b_ms, b_by = bound(34 * HW * 4, (9 * 45.0 + 60 + 9 * 13) * HW)
+        entries[("fuse_window", "sharded")] = dict(
+            name="fuse_window", route="cuda", caller="sharded S=2 fuse (each shard)",
+            source="elasticfusion_tpu_torch/csrc/fuse_window.cu",
+            replaces="elasticfusion_tpu/ops/fuse_pallas.py:49", max_abs_err=k3_err,
+            ms=time_ms(lambda: fuse_window(chan3, params, fx, fy, cx, cy, kcap),
+                       queue_first=True),
+            plain_ms=time_ms(lambda: fuse_window_plain(chan3, params, fx, fy, cx, cy, kcap),
+                             reps=5, warm=1),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None, launches=k3_launches,
+            launches_per_frame=k3_launches / (N_SHARD - 1))
+        for e in (entries[("splat_resolve", "sharded")], entries[("fuse_window", "sharded")]):
+            print(f"  {e['name']} ({e['caller']}): kernel {e['ms']:.4f} ms, plain "
+                  f"{e['plain_ms']:.3f} ms, bound {e['bound_ms']:.5f} ms by "
+                  f"{e['bound_by']}, {e['launches_per_frame']:.2f} launches per tracked "
+                  f"frame [{smi}]", flush=True)
+
+        # (d)
+        frames_d, gt_d = there_and_back(make_scene(n_side=1400), cam)
+        cfg_d = closure_config(cam).with_(mesh_shape=(2,))
+        d, launches_d, _ = counted(lambda _: run_closures(cam, frames_d, cfg_d))
+        eng = d["engine"]
+        check(isinstance(eng.map, engine_mod.ShardedMap) and d["deforms"][0] >= 1,
+              f"7(d) S=2 there-and-back: {d['deforms'][0]} local closures on sub-maps at "
+              f"ticks {[c['tick'] for c in d['closures']]}")
+        n = eng.surfel_count
+        m = eng.export_map()
+        terr, _ = pose_error(d["traj"][-1], gt_d[-1])
+        check(bool(torch.isfinite(m.pos[:, :n]).all()) and terr < MAX_CLOSURE_END_ERR_M,
+              f"7(d) {n} surfels finite, end-pose error {terr * 1e3:.1f} mm < "
+              f"{MAX_CLOSURE_END_ERR_M * 1e3:.0f} mm")
+        for c in d["closures"]:
+            print(f"  7(d) closure at tick {c['tick']}: host {c['ms']:.1f} ms, "
+                  f"{c['reads']} host reads [{smi}]", flush=True)
+
+        # (e)
+        e = run_two_ranks(cam, frames, tmp)
+        check(e["rcs"] == [0, 0, 0], f"7(e) two gloo ranks and one process exit "
+              f"{e['rcs']}\n{(e['outs'][0] + e['one'])[-2000:]}")
+        check(e["traj"][0] == e["traj"][1] == e["traj"][2]
+              and len(e["traj"][2].splitlines()) == N_SHARD,
+              f"7(e) both ranks' .freiburg equal the one-process -mesh 2 run's "
+              f"({N_SHARD} poses)")
+        print(f"  7(e) rank 0: {e['outs'][0].strip().splitlines()[-1]}", flush=True)
+        print(f"  7(e) wall {e['wall']:.1f} s for the three processes [{smi}]", flush=True)
+
+
 def phase_profile(cam, frames, steady_ms: float, cfg=None, label="") -> None:
     """torch.profiler over five steady frames: device time by kernel."""
     print(f"== profile: 5 frames{label}", flush=True)
@@ -1388,24 +1750,40 @@ def main() -> None:
                     help="stop after phase 3 (prints no result line)")
     args = ap.parse_args()
 
-    t_start = time.perf_counter()
+    t_lap = [time.perf_counter()]
+
+    def lap(phase: str) -> None:
+        """The seconds since the previous lap (the first: the imports)."""
+        now = time.perf_counter()
+        print(f"phase_seconds {phase} {now - t_lap[0]:.1f}", flush=True)
+        t_lap[0] = now
+
+    print(f"phase_seconds imports {t_lap[0] - T_PROCESS:.1f}", flush=True)
     smi = phase_environment()
     ptxas = phase_build()
+    lap("1-2")
     cam = CameraConfig()
     frames, gt_poses = make_frames(cam)
+    lap("frames")
     entries = phase_kernels(cam, frames, ptxas)
+    lap("3")
     if args.kernels_only:
         print("stopped after phase 3 as asked", flush=True)
         return
     launches, run = phase_main_path(cam, frames, gt_poses)
+    lap("4")
     p5 = phase_closure(cam, frames, gt_poses, run["ms"], entries)
+    lap("5")
     phase_pipeline(cam, frames, gt_poses, p5)
+    lap("6")
+    phase_sharded(cam, frames, gt_poses, entries)
+    lap("7")
     if args.profile:
         phase_profile(cam, frames, run["ms"])
         phase_profile(cam, frames, p5["a"]["ms"], engine_config(cam).with_(closeLoops=True),
                       " with closeLoops")
 
-    print("== 7. kernels", flush=True)
+    print("== 8. kernels", flush=True)
     kernels = []
     for e in entries.values():
         e = dict(e)
@@ -1413,7 +1791,8 @@ def main() -> None:
             e["launches"] = launches[e["name"]]
         e["kernel_ms"] = e["ms"]
         kernels.append(e)
-    print(f"total_seconds {time.perf_counter() - t_start:.1f}", flush=True)
+    print(f"total_seconds {time.perf_counter() - T_PROCESS:.1f} (from before the imports)",
+          flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

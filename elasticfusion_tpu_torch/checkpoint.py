@@ -7,6 +7,7 @@ regenerates the carried prediction from the restored map."""
 
 from __future__ import annotations
 
+import math
 from pathlib import Path
 from typing import Optional
 
@@ -82,7 +83,9 @@ def load_checkpoint(path: str | Path, cfg: Optional[EngineConfig] = None,
     """Rebuild an `Engine` from a checkpoint, on the card unless `device`
     names something else.  `cfg` must match the sensor geometry the
     checkpoint was recorded with.  Restored capacity: the next bucket of
-    twice the live count."""
+    twice the live count, rounded up to a multiple of the shards when
+    `cfg.mesh_shape` is set (the map is saved as one one-device map at any
+    S, and the first frame redistributes it over the engine's shards)."""
     from .convert import load_fern_db
     from .deformation import HostConstraint
     from .engine import Engine, _next_bucket
@@ -104,13 +107,16 @@ def load_checkpoint(path: str | Path, cfg: Optional[EngineConfig] = None,
 
     if "map_count" in z:
         n = int(z["map_count"])
-        m = empty_map(_next_bucket(2 * n, max(cfg.max_surfels, 2 * n)), eng.device)
+        cap = _next_bucket(2 * n, max(cfg.max_surfels, 2 * n))
+        if cfg.mesh_shape is not None:
+            S = math.prod(cfg.mesh_shape)
+            cap = -(-cap // S) * S
+        m = empty_map(cap, eng.device)
         for f in ("pos", "conf", "color", "init_t", "last_t", "normal", "radius"):
             getattr(m, f)[..., :n] = torch.from_numpy(
                 np.asarray(z["map_" + f], np.float32)).to(eng.device)
         m.count.fill_(n)
-        eng.map = m
-        eng._count_finished = n
+        eng._adopt_map(m, n)
     if "fern_codes" in z and eng.ferns is not None:
         load_fern_db(eng.ferns, (
             dict(codes=z["fern_codes"][i], good_codes=z["fern_good"][i],

@@ -28,9 +28,16 @@ tracking gates from the tracker's last read, the model-to-model skip from
 that one predicate read.
 
 Externally supplied poses (`in_T_wc` after the first frame) fuse without
-tracking or loop closure, synchronously.  Not ported yet — each raises
-`NotImplementedError` when asked for: multi-device maps (`mesh_shape`), the
-u16 fixed-point tables (`fx16_tables`) and `fx16_clean` in `slam_step`.
+tracking or loop closure, synchronously.
+
+With `cfg.mesh_shape = (S,)` the map is S sub-maps (`parallel/shard_step.py`:
+a `ShardedMap` held by this one process, or spread over the processes of
+`torch.distributed`); every map operation of the frame, of the closure
+repair, of growth and of export goes through `_map_ops`, and the
+frame state (tracking, predictions, fill-in, ferns, the deformation graph)
+stays replicated on the lead device.  Not ported yet, and raising
+`NotImplementedError` when asked for: the u16 fixed-point tracking tables
+(`fx16_tables`).
 """
 
 from __future__ import annotations
@@ -54,7 +61,10 @@ from .ops.preprocess import (
     pyr_down_intensity,
     rgb_to_intensity,
 )
-from .ops.splat import Prediction, combined_predict, predict_indices, synthesize_depth
+from .ops.splat import Prediction, combined_predict, predict_indices
+from .parallel import shard_step
+from .parallel.shard_step import ShardedMap, to_device
+from .parallel.sharding import engine_group
 from .se3 import invert, np_orthonormalize, se3_log_norm
 from .surfels import SurfelMap, init_map_from_frame, recip32
 from .tracking import (
@@ -102,14 +112,83 @@ def _next_bucket(n: int, cap: int) -> int:
     return min(b, cap)
 
 
-def _grow_map(m: SurfelMap, capacity: int) -> SurfelMap:
-    pad = capacity - m.capacity
-    grow = lambda x: torch.nn.functional.pad(x, (0, pad))  # noqa: E731
-    return SurfelMap(
-        pos=grow(m.pos), conf=grow(m.conf), color=grow(m.color),
-        init_t=grow(m.init_t), last_t=grow(m.last_t), normal=grow(m.normal),
-        radius=grow(m.radius), count=m.count,
-    )
+class _OneDeviceMap:
+    """The map operations the engine calls, on a one-device `SurfelMap`.
+    `parallel.shard_step` offers the same functions over a `ShardedMap`, and
+    `_map_ops` picks one of the two: the engine's only test of the map's
+    type."""
+
+    # The reference's one-device Engine cleans on the exact float32 patch in
+    # its frame and closure sections (only `slam_step` and the external-pose
+    # path honour cfg.fx16_clean); its sharded map honours the flag there.
+    FRAME_CLEAN_FX16 = False
+
+    predict_indices = staticmethod(predict_indices)
+    combined_predict = staticmethod(combined_predict)
+
+    @staticmethod
+    def max_count(m: SurfelMap) -> torch.Tensor:
+        return m.count
+
+    @staticmethod
+    def each(m: SurfelMap, fn) -> SurfelMap:
+        return fn(m)
+
+    @staticmethod
+    def gather(m: SurfelMap) -> SurfelMap:
+        return m
+
+    @staticmethod
+    def grow(m: SurfelMap, capacity: int) -> SurfelMap:
+        pad = capacity - m.capacity
+        grow = lambda x: torch.nn.functional.pad(x, (0, pad))  # noqa: E731
+        return SurfelMap(
+            pos=grow(m.pos), conf=grow(m.conf), color=grow(m.color),
+            init_t=grow(m.init_t), last_t=grow(m.last_t), normal=grow(m.normal),
+            radius=grow(m.radius), count=m.count,
+        )
+
+    @staticmethod
+    def fuse_clean(m: SurfelMap, T, tick, rgb, raw_m, filt_m, weighting,
+                   cfg: EngineConfig, do_compact: bool, fx16: bool):
+        """predictIndices -> fuse -> clean (cpp:536-585).  The post-fuse
+        index prediction clean consumes is derived in the pixel domain by
+        fuse; `fx16` runs clean's u16 fixed-point window patch."""
+        cam = cfg.camera
+        pidx = predict_indices(m, T, cam, tick, cfg.time_delta, cfg.max_depth_processed)
+        m2, stats, pidx2 = fuse(
+            m, pidx, T, tick, rgb, raw_m, filt_m, cam,
+            cfg.max_depth_processed, weighting, return_updated_pred=True,
+        )
+        m3 = _OneDeviceMap.clean_all(m2, pidx2, T, tick, cfg, fx16, do_compact)
+        return m3, stats
+
+    @staticmethod
+    def clean_all(m: SurfelMap, pidx, T, tick, cfg: EngineConfig, fx16: bool,
+                  do_compact: bool = True) -> SurfelMap:
+        return clean(
+            m, pidx, T, tick, cfg.camera, cfg.confidence_threshold, cfg.time_delta,
+            cfg.max_depth_processed, cfg.unstable_age, do_compact=do_compact,
+            fx16_patch=fx16,
+        )
+
+    @staticmethod
+    def sample_nodes(m: SurfelMap, rate: int):
+        """Every rate-th surfel's (position [M,3], init time [M]) — the
+        deformation-graph node sample (sample.geom:33-39)."""
+        return _sample_every(m.pos, m.init_t, m.count, rate)[:2]
+
+    @staticmethod
+    def inactive_count(m: SurfelMap, tick, cfg: EngineConfig) -> torch.Tensor:
+        """Live confident surfels that have left the active time window."""
+        live = torch.arange(m.capacity, device=m.pos.device) < m.count
+        return torch.sum(live & (m.conf >= cfg.confidence_threshold)
+                         & (m.last_t <= tick - cfg.time_delta))
+
+
+def _map_ops(m):
+    """The map operations of a one-device or a sharded map."""
+    return shard_step if isinstance(m, ShardedMap) else _OneDeviceMap
 
 
 def _dense_fraction(pred: Prediction) -> torch.Tensor:
@@ -117,14 +196,19 @@ def _dense_fraction(pred: Prediction) -> torch.Tensor:
     return (torch.sum(pred.image, dim=-1) > 0).to(torch.float32).mean()
 
 
+def _combined_predict(m, T_wc, time, max_time, time_delta, cfg: EngineConfig
+                      ) -> Prediction:
+    """combinedPredict of a one-device or a sharded map."""
+    return _map_ops(m).combined_predict(
+        m, T_wc, cfg.camera, time, max_time, time_delta,
+        cfg.confidence_threshold, cfg.max_depth_processed)
+
+
 def _predict(m: SurfelMap, T_wc, time, max_time, depth_filt_m, rgb, lost,
              cfg: EngineConfig):
     """predict() (ElasticFusion.cpp:621-653): ACTIVE combinedPredict + the
     three fill-in passes + the denseEnough statistic."""
-    pred = combined_predict(
-        m, T_wc, cfg.camera, time, max_time, cfg.time_delta,
-        cfg.confidence_threshold, cfg.max_depth_processed,
-    )
+    pred = _combined_predict(m, T_wc, time, max_time, cfg.time_delta, cfg)
     vtx, nrm, img = fill_all(
         pred, depth_filt_m, rgb, cfg.camera, cfg.max_depth_processed,
         lost, cfg.frame_to_frame_rgb,
@@ -155,20 +239,10 @@ def _track(
 
 
 def _fuse_clean(m, T, tick, rgb, raw_m, filt_m, weighting, cfg: EngineConfig,
-                do_compact: bool):
-    """predictIndices -> fuse -> clean (cpp:536-585).  The post-fuse index
-    prediction clean consumes is derived in the pixel domain by fuse."""
-    cam = cfg.camera
-    pidx = predict_indices(m, T, cam, tick, cfg.time_delta, cfg.max_depth_processed)
-    m2, stats, pidx2 = fuse(
-        m, pidx, T, tick, rgb, raw_m, filt_m, cam,
-        cfg.max_depth_processed, weighting, return_updated_pred=True,
-    )
-    m3 = clean(
-        m2, pidx2, T, tick, cam, cfg.confidence_threshold, cfg.time_delta,
-        cfg.max_depth_processed, cfg.unstable_age, do_compact=do_compact,
-    )
-    return m3, stats
+                do_compact: bool, fx16: bool):
+    """predictIndices -> fuse -> clean of a one-device or a sharded map."""
+    return _map_ops(m).fuse_clean(m, T, tick, rgb, raw_m, filt_m, weighting, cfg,
+                                  do_compact, fx16)
 
 
 @torch.no_grad()
@@ -186,27 +260,17 @@ def slam_step(
     predict(+fill-in), every tensor on the inputs' device.
 
     Returns (map', T_curr, so3_hist', (vertex, normal, image) fill-in,
-    prediction, dense_frac, tracking stats).  The reference `slam_step`
-    hands `cfg.fx16_clean` to `clean`; this port has the exact float32 patch
-    only and raises when the flag is set rather than ignore it."""
-    if cfg.fx16_clean:
-        raise NotImplementedError(
-            "slam_step: fx16_clean is not ported yet (ROADMAP M12); pass "
-            "cfg.with_(fx16_clean=False)")
+    prediction, dense_frac, tracking stats).  Like the reference `slam_step`
+    it hands `cfg.fx16_clean` to `clean`."""
     raw_m, filt_m = _preprocess(depth_mm, cfg)
     res, so3_cur = _track(
         pred_vertex, pred_normal, pred_image, filt_m, rgb, so3_hist, T_prev, cfg,
     )
     T = res.T_curr
-    m, _stats = _fuse_clean(m, T, tick, rgb, raw_m, filt_m, weighting, cfg, True)
+    m, _stats = _fuse_clean(m, T, tick, rgb, raw_m, filt_m, weighting, cfg, True,
+                            cfg.fx16_clean)
     pred, vtx, nrm, img, dense = _predict(m, T, tick, tick, filt_m, rgb, False, cfg)
     return m, T, so3_cur, (vtx, nrm, img), pred, dense, res
-
-
-def _sample_nodes(m: SurfelMap, rate: int):
-    """Every rate-th surfel's (position [M,3], init time [M]) — the
-    deformation-graph node sample (sample.geom:33-39)."""
-    return _sample_every(m.pos, m.init_t, m.count, rate)[:2]
 
 
 def _empty_tracking_result(device) -> TrackingResult:
@@ -257,13 +321,6 @@ def _tracking_ok(host: TrackingHost, cfg: EngineConfig) -> bool:
             and bool(np.all(np.diag(cov) < f32(cfg.reloc_cov_threshold))))
 
 
-def _inactive_exists(m: SurfelMap, tick, cfg: EngineConfig) -> torch.Tensor:
-    """Whether any live confident surfel has left the active time window."""
-    live = torch.arange(m.capacity, device=m.pos.device) < m.count
-    return torch.any(live & (m.conf >= cfg.confidence_threshold)
-                     & (m.last_t <= tick - cfg.time_delta))
-
-
 def _closure_inputs(m: SurfelMap, T, T_host, pred: Prediction, fill, tick, fern,
                     cfg: EngineConfig):
     """What the host's loop-closure decisions read of a frame: the fern views,
@@ -279,14 +336,13 @@ def _closure_inputs(m: SurfelMap, T, T_host, pred: Prediction, fill, tick, fern,
     codes, good = fern_encode_device(views[0], views[1], fern_flat, fern_rgbd)
     scores = fern_score_device(codes, good, db_codes, db_good, db_time, db_count,
                                tick, cfg.fern_min_age)
-    node_pos, node_t = _sample_nodes(m, cfg.def_graph_sample_rate)
+    ops = _map_ops(m)
+    node_pos, node_t = ops.sample_nodes(m, cfg.def_graph_sample_rate)
 
     hs, ws = -(-cam.height // CONS_SAMPLE), -(-cam.width // CONS_SAMPLE)
-    if bool(read_back(_inactive_exists(m, tick, cfg))):
-        old_pred = combined_predict(
-            m, T, cam, 0.0, tick - cfg.time_delta, cfg.time_delta,
-            cfg.confidence_threshold, cfg.max_depth_processed,
-        )
+    if bool(read_back(ops.inactive_count(m, tick, cfg) > 0)):
+        old_pred = _combined_predict(m, T, 0.0, tick - cfg.time_delta,
+                                     cfg.time_delta, cfg)
         inact_px = torch.sum(old_pred.depth > 0).to(torch.int32)
         m2m = _model_to_model(
             pred.vertex, pred.normal, pred.image,
@@ -329,9 +385,11 @@ def _frame_main(
       fail) -> end-of-frame combinedPredict + FillIn (cpp:599) -> with
       `fern`: `_closure_inputs`.
 
-    Like the reference `_frame_main` it runs `clean` on the exact float32
-    patch whatever `cfg.fx16_clean` says.  The closure inputs consume the
-    END-of-frame prediction, as in the reference package."""
+    Like the reference `_frame_main`, a one-device map's `clean` runs on the
+    exact float32 patch whatever `cfg.fx16_clean` says, and a sharded map's
+    honours the flag (ref `frame_map_section`, shard_step.py:335).  The
+    closure inputs consume the END-of-frame prediction, as in the reference
+    package."""
     raw_m, filt_m = _preprocess(depth_mm, cfg)
 
     use_fill = (dense_prev < 0.75) | bool(cfg.frame_to_frame_rgb)
@@ -352,12 +410,14 @@ def _frame_main(
 
     track_ok = _tracking_ok(res.host, cfg) if cfg.reloc_mode else True
 
+    ops = _map_ops(m)
     if cfg.rgb_only or lost or not track_ok:
         z = torch.zeros((), dtype=torch.int32, device=T.device)
         stats = FuseStats(matched=z, added=z, count=m.count)
     else:
         m, stats = _fuse_clean(
-            m, T, tick, rgb, raw_m, filt_m, weighting, cfg, do_compact)
+            m, T, tick, rgb, raw_m, filt_m, weighting, cfg, do_compact,
+            ops.FRAME_CLEAN_FX16 and cfg.fx16_clean)
 
     # end-of-frame predict (cpp:599) — next frame's tracking target
     pred, vtx, nrm, img, dense = _predict(
@@ -373,7 +433,7 @@ def _frame_main(
     fin = [
         T.reshape(-1), res.icp_error[None], res.icp_count[None],
         torch.full((1,), float(track_ok), device=T.device),
-        stats.count.to(f32)[None], m.count.to(f32)[None],
+        stats.count.to(f32)[None], ops.max_count(m).to(f32)[None],
     ]
     if fern is not None:
         c = _closure_inputs(m, T, torch.from_numpy(res.host.T), pred,
@@ -390,6 +450,40 @@ def _frame_main(
         ]
     out["finish_vec"] = torch.cat(fin)
     return out
+
+
+def _deform(m: SurfelMap, graph, T_fix, closure_tick: float):
+    """A (sub-)map's surfels after a closure: those older than the closure
+    frame deformed through the optimised graph, those fused at or after it
+    rigidly corrected by T_fix.  Returns the map and the `recent` mask."""
+    deformed_pos, deformed_nrm = apply_graph_to_surfels(m, graph)
+    recent = m.init_t >= closure_tick
+    Rf, tf = T_fix[:3, :3], T_fix[:3, 3]
+    new_pos = torch.where(recent[None], Rf @ m.pos + tf[:, None], deformed_pos)
+    new_nrm = torch.where(recent[None], Rf @ m.normal, deformed_nrm)
+    return m._replace(pos=new_pos, normal=new_nrm), recent
+
+
+def _refresh_last_seen(m1: SurfelMap, recent, depth_synth, T_new, tick_now: float,
+                       cfg: EngineConfig) -> SurfelMap:
+    """Timestamp refresh of deformed surfels against the synthesized
+    inactive depth (copy_unstable.vert:305-321)."""
+    cam = cfg.camera
+    H, W = cam.height, cam.width
+    t = T_new[:3, 3]
+    lp2 = T_new[:3, :3].T @ (m1.pos - t[:, None])
+    sz = torch.where(torch.abs(lp2[2]) > 1e-12, lp2[2], torch.ones_like(lp2[2]))
+    x2 = lp2[0] * cam.fx / sz + cam.cx
+    y2 = lp2[1] * cam.fy / sz + cam.cy
+    inb = ((lp2[2] > 0) & (lp2[2] < cfg.max_depth_processed)
+           & (x2 > 0) & (y2 > 0) & (x2 < W) & (y2 < H))
+    flat = (torch.clamp(y2.to(torch.int32), 0, H - 1).to(torch.int64) * W
+            + torch.clamp(x2.to(torch.int32), 0, W - 1))
+    d = depth_synth.reshape(-1)[flat]
+    refresh = ((m1.conf > cfg.confidence_threshold) & ~recent & inb
+               & (d > 0) & (lp2[2] < d + 0.1))
+    return m1._replace(last_t=torch.where(
+        refresh, torch.full_like(m1.last_t, tick_now), m1.last_t))
 
 
 def _apply_closure(
@@ -410,45 +504,35 @@ def _apply_closure(
     correction to those fused at or after it, (b) unless a fern closed the
     loop, refresh timestamps against the synthesized inactive depth
     (cpp:561-570), (c) re-clean, (d) regenerate the carried prediction and
-    fern state at the corrected pose."""
+    fern state at the corrected pose.
+
+    A sharded map is repaired sub-map by sub-map (ref
+    `_apply_closure_sharded`).  The synthesized depth is rendered from the
+    map before the deformation at any S, as the reference's one-device
+    repair does (its sharded one renders the deformed map), so S = 1 is the
+    one-device repair bit for bit; the sharded re-clean honours
+    `cfg.fx16_clean` as the reference's sharded one does."""
     cam = cfg.camera
-    H, W = cam.height, cam.width
-    deformed_pos, deformed_nrm = apply_graph_to_surfels(m, graph)
-    recent = m.init_t >= closure_tick
-    Rf, tf = T_fix[:3, :3], T_fix[:3, 3]
-    new_pos = torch.where(recent[None], Rf @ m.pos + tf[:, None], deformed_pos)
-    new_nrm = torch.where(recent[None], Rf @ m.normal, deformed_nrm)
-    m1 = m._replace(pos=new_pos, normal=new_nrm)
-
+    depth_synth = None
     if not fern_accepted:
-        # time=tick, maxTime=tick-timeDelta, timeDelta=uint16-max (cpp:561-569),
-        # rendered from the map before the deformation, as the reference does
-        depth_synth = synthesize_depth(
-            m, T_new, cam, tick_now, tick_now - cfg.time_delta, 65535,
-            cfg.confidence_threshold, cfg.max_depth_processed,
-        )
-        # timestamp refresh of deformed surfels (copy_unstable.vert:305-321)
-        t = T_new[:3, 3]
-        lp2 = T_new[:3, :3].T @ (m1.pos - t[:, None])
-        sz = torch.where(torch.abs(lp2[2]) > 1e-12, lp2[2], torch.ones_like(lp2[2]))
-        x2 = lp2[0] * cam.fx / sz + cam.cx
-        y2 = lp2[1] * cam.fy / sz + cam.cy
-        inb = ((lp2[2] > 0) & (lp2[2] < cfg.max_depth_processed)
-               & (x2 > 0) & (y2 > 0) & (x2 < W) & (y2 < H))
-        flat = (torch.clamp(y2.to(torch.int32), 0, H - 1).to(torch.int64) * W
-                + torch.clamp(x2.to(torch.int32), 0, W - 1))
-        d = depth_synth.reshape(-1)[flat]
-        refresh = ((m1.conf > cfg.confidence_threshold) & ~recent & inb
-                   & (d > 0) & (lp2[2] < d + 0.1))
-        m1 = m1._replace(last_t=torch.where(
-            refresh, torch.full_like(m1.last_t, tick_now), m1.last_t))
+        # time=tick, maxTime=tick-timeDelta, timeDelta=uint16-max (cpp:561-569)
+        depth_synth = _combined_predict(
+            m, T_new, tick_now, tick_now - cfg.time_delta, 65535, cfg).depth
 
-    pidx = predict_indices(
+    def repair(mk):
+        dev = mk.pos.device
+        m1, recent = _deform(mk, to_device(graph, dev), T_fix.to(dev), closure_tick)
+        if depth_synth is None:
+            return m1
+        return _refresh_last_seen(m1, recent, depth_synth.to(dev), T_new.to(dev),
+                                  tick_now, cfg)
+
+    ops = _map_ops(m)
+    m1 = ops.each(m, repair)
+    pidx = ops.predict_indices(
         m1, T_new, cam, tick_now, cfg.time_delta, cfg.max_depth_processed)
-    m2 = clean(
-        m1, pidx, T_new, tick_now, cam, cfg.confidence_threshold,
-        cfg.time_delta, cfg.max_depth_processed, cfg.unstable_age,
-    )
+    m2 = ops.clean_all(m1, pidx, T_new, tick_now, cfg,
+                       ops.FRAME_CLEAN_FX16 and cfg.fx16_clean)
     pred, vtx, nrm, img, dense = _predict(
         m2, T_new, tick_now, max_time, filt_m, rgb, lost, cfg)
     views = decimate_views(img, vtx, nrm, cfg.fern_pyramid_factor)
@@ -514,16 +598,20 @@ def _unported(flag: str, item: str):
 class Engine:
     """Dense RGB-D SLAM engine with the ElasticFusion surface (construct,
     process_frame per frame).  Runs on the CUDA card unless `device` names
-    something else; `device=None` raises when there is no card."""
+    something else; `device=None` raises when there is no card.
+
+    With `cfg.mesh_shape = (S,)` the map is S sub-maps: all on `device`
+    when given, else on `cuda:0 .. cuda:S-1` (`parallel.sharding.engine_group`); the
+    frame state lives on the first of them."""
 
     def __init__(self, cfg: EngineConfig = EngineConfig(),
                  device: DeviceLike = None):
-        if cfg.mesh_shape is not None:
-            raise _unported("mesh_shape (multi-device map)", "M11")
         if cfg.fx16_tables:
-            raise _unported("fx16_tables", "M12")
+            raise _unported("fx16_tables (u16 fixed-point tracking tables)",
+                            "M12 (b)")
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.group = engine_group(cfg, device)
+        self.device = self.group.lead if self.group else resolve_device(device)
         self.tick = 1                             # starts at 1 (EF.cpp:55)
         self.T_wc = np.eye(4)                     # f64 host pose
         self.lost = False
@@ -550,6 +638,7 @@ class Engine:
         self._good = None
         self._last_frame = None     # (filtered depth, rgb) of the latest frame
         self._count_finished = 0    # exact count of the last finished frame
+        self._count_max_finished = 0  # and of its fullest shard
         self._last_icp_error = 0.0
         self._last_icp_count = 0.0
         self._last_tracking_ok = True
@@ -706,7 +795,10 @@ class Engine:
         cap0 = _next_bucket(
             max(n_px + n_px // 4, cfg.initial_surfels or 0), cfg.max_surfels
         )
-        self.map = _init_map(raw_m, filt_m, rgb_d, cfg, cap0)
+        if self.group is not None:
+            cap0 = -(-cap0 // self.group.S) * self.group.S   # capacity % S == 0
+        m_single = _init_map(raw_m, filt_m, rgb_d, cfg, cap0)
+        self._adopt_map(m_single, int(read_back(m_single.count)))
         self._so3_hist = _coarse_intensity(rgb_d, cfg)  # initFirstRGB
         if in_T_wc is not None:
             self.T_wc = np.asarray(in_T_wc, np.float64)
@@ -719,12 +811,14 @@ class Engine:
         if self.ferns is not None:
             self._codes, self._good = fern_encode_device(
                 self._views[0], self._views[1], *self.ferns.encode_tables())
-        self._count_finished = int(read_back(self.map.count))
         self.tick_poses.append((1, self.T_wc.copy()))
         self.pose_times.append(int(timestamp))
         if self.local_deformation is not None:
+            # sampled from the one-device layout, whose slot order is time
+            # order (as the reference does)
             self.local_deformation.set_sampled(
-                *_sample_nodes(self.map, cfg.def_graph_sample_rate), self.map.count)
+                *_OneDeviceMap.sample_nodes(m_single, cfg.def_graph_sample_rate),
+                m_single.count)
             self.global_deformation.sample_graph_from(self.local_deformation)
         self.tick = 2
 
@@ -732,8 +826,7 @@ class Engine:
                              in_T_wc):
         """The ground-truth-pose path: no tracking, no loop closures (they
         are pointless under supplied poses) — synchronous.  Like the
-        reference `_frame_main` (and unlike its external-pose path) it runs
-        `clean` on the exact float32 patch whatever `cfg.fx16_clean` says."""
+        reference's external-pose path it honours `cfg.fx16_clean`."""
         cfg = self.cfg
         self.flush()
         self._maybe_grow()
@@ -751,11 +844,13 @@ class Engine:
         tick_dev = torch.tensor(float(self.tick), device=self.device)
         T_d = self._T_f32.to(self.device)
         self.map, stats = _fuse_clean(
-            self.map, T_d, tick_dev, rgb_d, raw_m, filt_m, weighting, cfg, True)
+            self.map, T_d, tick_dev, rgb_d, raw_m, filt_m, weighting, cfg, True,
+            cfg.fx16_clean)
         self._pred, self._fill, self._dense_dev, self._views = _predict_only(
             self.map, T_d, tick_dev, tick_dev, filt_m, rgb_d, False, cfg)
         self._last_frame = (filt_m, rgb_d)
-        self._count_finished = int(read_back(stats.count))
+        self._count_finished, self._count_max_finished = (int(c) for c in read_back(
+            torch.stack([stats.count, _map_ops(self.map).max_count(self.map)]).to(torch.int64)))
         self._last_fused = True
         self.tick_poses.append((self.tick, self.T_wc.copy()))
         self.pose_times.append(int(timestamp))
@@ -794,9 +889,18 @@ class Engine:
         cap = self.map.capacity
         hw4 = (cfg.camera.width * cfg.camera.height) // 4
         est = self._count_finished
+        if self.group is not None:
+            # the trigger watches the FULLEST shard (each overflows on its
+            # own); every shard grows to the new capacity / S
+            S = self.group.S
+            est_max = self._count_max_finished
+            if cap < cfg.max_surfels and est_max > 0.8 * (cap // S):
+                target = _next_bucket(int(1.35 * est_max) * S + hw4, cfg.max_surfels)
+                self.map = shard_step.grow(self.map, -(-target // S) * S)
+            return
         if cap < cfg.max_surfels and est > 0.8 * cap:
             # 1.35 > 1/0.8 so the new bucket sits below its own trigger
-            self.map = _grow_map(
+            self.map = _OneDeviceMap.grow(
                 self.map, _next_bucket(int(1.35 * est) + hw4, cfg.max_surfels))
 
     def _result(self) -> FrameResult:
@@ -829,6 +933,7 @@ class Engine:
         self._last_icp_count = float(vec[17])
         tok = vec[18] != 0.0
         self._count_finished = int(vec[19])
+        self._count_max_finished = int(vec[20])
 
         tracking_ok = True
         if cfg.reloc_mode:
@@ -1041,11 +1146,24 @@ class Engine:
 
         write_freiburg(path, self.poses, iclnuim=iclnuim)
 
+    def _adopt_map(self, m: SurfelMap, count: int) -> None:
+        """Make a one-device map of `count` live surfels (the first frame's,
+        a restored checkpoint's) the engine's: redistributed into S sub-maps
+        when the engine is sharded, the fullest of which then holds
+        ceil(count / S) surfels."""
+        self._count_finished = self._count_max_finished = count
+        if self.group is not None:
+            S = self.group.S
+            self._count_max_finished = min(-(-count // S), m.capacity // S)
+            m = shard_step.distribute_map(m, self.group)
+        self.map = m
+
     def export_map(self) -> Optional[SurfelMap]:
-        """The map after every in-flight frame has finished (one device: the
-        map itself)."""
+        """The map after every in-flight frame has finished, as ONE
+        one-device map (sub-maps are gathered shard by shard: exports,
+        checkpoints)."""
         self.flush()
-        return self.map
+        return _map_ops(self.map).gather(self.map)
 
     def save_ply(self, path) -> int:
         """The confident surfels as a binary PLY; returns the vertex count."""

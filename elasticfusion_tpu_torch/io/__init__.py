@@ -3,7 +3,7 @@
 from `save_ply`'s one read of a torch map."""
 
 from .groundtruth import GroundTruthOdometry
-from .klg import Frame, KlgLogReader, open_klg, write_klg
+from .klg import Frame, KlgLogReader, NativeKlgLogReader, open_klg, write_klg
 from .ply import load_ply, save_ply
 from .trajectory import ate_rmse, horn_align, read_freiburg, write_freiburg
 from .tum import TumLogReader, associate, read_groundtruth
@@ -12,6 +12,7 @@ __all__ = [
     "Frame",
     "GroundTruthOdometry",
     "KlgLogReader",
+    "NativeKlgLogReader",
     "open_klg",
     "write_klg",
     "TumLogReader",

@@ -1,5 +1,5 @@
 """.klg RGB-D log format reader/writer (own copy of the reference package's
-`io/klg.py`, Python path only) — behavioural equivalent of `RawLogReader`
+`io/klg.py`) — behavioural equivalent of `RawLogReader`
 (Tools/RawLogReader.{h,cpp} of the original system).
 
 Format (RawLogReader.cpp:29, 64-97):
@@ -12,9 +12,14 @@ Format (RawLogReader.cpp:29, 64-97):
     imageSize bytes:  JPEG RGB if imageSize != H*W*3, else raw u8[H,W,3];
                       0 -> no image (black frame)
 
-Depth is decoded with Python's zlib; a JPEG image needs PIL, imported only
-when such a frame is met, so a log with raw RGB reads without it.  Rewind is
-a frame-offset list instead of a file-pointer stack (RawLogReader.cpp:47-55).
+Two decoders.  `NativeKlgLogReader` runs the port's own C++ decoder
+(`csrc/klg_decoder.cpp`: zlib, and libjpeg or else the CUDA toolkit's nvJPEG;
+the file mmapped and indexed once), built with g++ at its first use;
+`open_klg` takes it wherever the host can build it, and says once on stderr
+which decoder it uses.  `KlgLogReader`
+decodes depth with Python's zlib and a JPEG image with PIL, imported only when
+such a frame is met, so a log with raw RGB reads without it.  Rewind is a
+frame-offset list instead of a file-pointer stack (RawLogReader.cpp:47-55).
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ import struct
 import zlib
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Iterator, List, Tuple
+from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -42,8 +47,125 @@ def _decode_jpeg(buf: bytes) -> np.ndarray:
     return np.asarray(Image.open(_io.BytesIO(buf)).convert("RGB"))
 
 
+# --- the native decoder (csrc/klg_decoder.cpp), built and loaded lazily ------
+
+_NATIVE = None
+_NATIVE_WHY = None      # why there is no native decoder, once asked
+_ANNOUNCED = False
+
+
+def _native_lib():
+    """The ctypes library of the port's native decoder, or None where this
+    host lacks g++, zlib or a JPEG library to build it (`decoder_in_use`
+    says which).  A failed build on a host that has them raises."""
+    global _NATIVE, _NATIVE_WHY
+    if _NATIVE is not None or _NATIVE_WHY is not None:
+        return _NATIVE
+    import ctypes
+
+    from .._build import host_library, host_toolchain_missing
+
+    missing = host_toolchain_missing("klg_decoder")
+    if missing:
+        _NATIVE_WHY = missing
+        return None
+    lib = host_library("klg_decoder")
+    lib.ef_klg_open.restype = ctypes.c_void_p
+    lib.ef_klg_open.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_int]
+    lib.ef_klg_num_frames.restype = ctypes.c_int
+    lib.ef_klg_num_frames.argtypes = [ctypes.c_void_p]
+    lib.ef_klg_read.restype = ctypes.c_int
+    lib.ef_klg_read.argtypes = [
+        ctypes.c_void_p, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_uint16), ctypes.POINTER(ctypes.c_uint8),
+        ctypes.POINTER(ctypes.c_int64),
+    ]
+    lib.ef_klg_close.argtypes = [ctypes.c_void_p]
+    _NATIVE = lib
+    return lib
+
+
+def decoder_in_use() -> str:
+    """Which decoder `open_klg` takes on this host, in words."""
+    if _native_lib() is not None:
+        from .._build import host_variant
+
+        return f"native (csrc/klg_decoder.cpp: zlib + {host_variant('klg_decoder')})"
+    return (f"Python (zlib; PIL for JPEG colour): no native decoder here, "
+            f"{_NATIVE_WHY}")
+
+
+class NativeKlgLogReader:
+    """The C++ decode path (csrc/klg_decoder.cpp): O(1) seek, zlib and a
+    JPEG library in native code — the runtime analog of RawLogReader +
+    JPEGLoader."""
+
+    def __init__(self, path: str | Path, width: int = 640, height: int = 480):
+        import ctypes
+
+        self._ct = ctypes
+        lib = _native_lib()
+        if lib is None:
+            raise RuntimeError(f"no native .klg decoder on this host: {_NATIVE_WHY}")
+        self._lib = lib
+        self.path = Path(path)
+        self.width = width
+        self.height = height
+        self._h = lib.ef_klg_open(str(self.path).encode(), width, height)
+        if not self._h:
+            raise IOError(f"cannot open {path}")
+        self.num_frames = lib.ef_klg_num_frames(self._h)
+        self._i = 0
+
+    def has_more(self) -> bool:
+        return self._i < self.num_frames
+
+    def get_next(self) -> Frame:
+        if not self.has_more():
+            raise EOFError(f"{self.path}: no more frames ({self.num_frames})")
+        ct = self._ct
+        depth = np.empty((self.height, self.width), np.uint16)
+        rgb = np.empty((self.height, self.width, 3), np.uint8)
+        ts = ct.c_int64()
+        rc = self._lib.ef_klg_read(
+            self._h, self._i,
+            depth.ctypes.data_as(ct.POINTER(ct.c_uint16)),
+            rgb.ctypes.data_as(ct.POINTER(ct.c_uint8)),
+            ct.byref(ts),
+        )
+        if rc != 0:
+            raise EOFError(f"{self.path}: decode error {rc} at frame {self._i}")
+        self._i += 1
+        return Frame(timestamp=ts.value, depth_mm=depth, rgb=rgb)
+
+    def rewind(self) -> None:
+        self._i = 0
+
+    def fast_forward(self, frame: int) -> None:
+        self._i = min(frame, self.num_frames)
+
+    def __iter__(self) -> Iterator[Frame]:
+        while self.has_more():
+            yield self.get_next()
+
+    def close(self) -> None:
+        if self._h:
+            self._lib.ef_klg_close(self._h)
+            self._h = None
+
+
 def open_klg(path: str | Path, width: int = 640, height: int = 480):
-    """Open a .klg for sequential reading (the Python decoder)."""
+    """Open a .klg with the native decoder where this host can build it,
+    else with the Python one; the first call says on stderr which."""
+    global _ANNOUNCED
+    native = _native_lib() is not None
+    if not _ANNOUNCED:
+        import sys
+
+        sys.stderr.write(f"klg: {decoder_in_use()}\n")
+        _ANNOUNCED = True
+    if native:
+        return NativeKlgLogReader(path, width, height)
     return KlgLogReader(path, width, height)
 
 
@@ -119,20 +241,31 @@ class KlgLogReader:
         self._f.close()
 
 
+def _encode_jpeg(rgb: np.ndarray, quality: int) -> bytes:
+    from PIL import Image
+
+    buf = _io.BytesIO()
+    Image.fromarray(rgb).save(buf, format="JPEG", quality=quality)
+    return buf.getvalue()
+
+
 def write_klg(
     path: str | Path,
     frames: List[Tuple[int, np.ndarray, np.ndarray]],
     compress_depth: bool = True,
+    jpeg_quality: Optional[int] = None,
 ) -> None:
     """Write a .klg file from (timestamp_us, depth_mm u16 [H,W], rgb u8
-    [H,W,3]) tuples.  RGB is stored raw (readers accept raw or JPEG)."""
+    [H,W,3]) tuples.  RGB is stored raw, or as JPEG at `jpeg_quality` (as
+    the original Logger writes it; needs PIL)."""
     with open(path, "wb") as f:
         f.write(struct.pack("<i", len(frames)))
         for ts, depth, rgb in frames:
             depth = np.ascontiguousarray(depth, np.uint16)
             rgb = np.ascontiguousarray(rgb, np.uint8)
             dbuf = zlib.compress(depth.tobytes()) if compress_depth else depth.tobytes()
-            ibuf = rgb.tobytes()
+            ibuf = (rgb.tobytes() if jpeg_quality is None
+                    else _encode_jpeg(rgb, jpeg_quality))
             f.write(struct.pack("<qii", int(ts), len(dbuf), len(ibuf)))
             f.write(dbuf)
             f.write(ibuf)

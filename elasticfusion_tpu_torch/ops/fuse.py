@@ -12,10 +12,10 @@ Structure (as in the reference package):
   - *Clean pass*: cull merged / free-space-violating / stale-unstable
     surfels with the {1,2,1}x{1,2,1} window weights, and compact survivors.
 
-Single-device only: the shard-local arguments of the reference `fuse`
-(`id_base`, `append_*`) are not ported (ROADMAP M11).  Both functions return
-new map tensors and leave their inputs untouched (no in-place update of the
-caller's map), so a caller may keep the old map.
+`fuse` also runs on one shard of a sharded map (`parallel/shard_step.py`)
+with the reference's shard-local arguments (`id_base`, `append_*`).  Both
+functions return new map tensors and leave their inputs untouched (no
+in-place update of the caller's map), so a caller may keep the old map.
 """
 
 from __future__ import annotations
@@ -37,10 +37,14 @@ from ..surfels import (
     unpack_map,
 )
 from .fuse_window import fuse_window
+from .gatherpack import gather_fx16, pack_fx16
 from .preprocess import shift2d
 from .splat import IndexPrediction
 
 WINDOW_INPUTS_SPAN = "fuse.window_inputs_cat"
+# K3's "no match" id in shard-local mode, where the prediction carries
+# global ids: above every global id (a sharded map's capacity stays below it)
+GLOBAL_ID_LIMIT = (1 << 24) - 1
 
 # clean()'s 3x3 window weights — the pixel-aliasing multiplicity of the
 # original's 16-sample loop
@@ -73,8 +77,20 @@ def fuse(
     max_depth: float,
     weighting,
     return_updated_pred: bool = False,
+    id_base: Optional[int] = None,
+    append_on=None,
+    append_base=None,
+    append_free=None,
 ):
     """GlobalModel::fuse (GlobalModel.cpp:356-525).  See module docstring.
+
+    Shard-local mode (ref ops/fuse.py:148-173): `m` is ONE shard of the map
+    while `pred` carries GLOBAL surfel ids.  `id_base` is this shard's first
+    global id (the winner test becomes pred.index == id_base + slot);
+    `append_on` (bool, or a 0-d bool tensor) lets only the frame's owner
+    shard write the appended surfels, at most `append_free` of them;
+    `append_base` is the global id of the first one (the owner's id_base +
+    count), so the updated prediction is the same on every shard.
 
     With `return_updated_pred` the POST-fuse index prediction is derived in
     the pixel domain and returned as a third output, replacing the original's
@@ -134,7 +150,8 @@ def fuse(
     with torch.profiler.record_function(WINDOW_INPUTS_SPAN):
         chan = torch.cat(planes)
     params = torch.cat([R.reshape(-1), t]).to(torch.float32).contiguous()
-    outk = fuse_window(chan, params, cam.fx, cam.fy, cam.cx, cam.cy, cap)
+    outk = fuse_window(chan, params, cam.fx, cam.fy, cam.cx, cam.cy,
+                       cap if id_base is None else GLOBAL_ID_LIMIT)
     matched = outk[3] > 0.0
     contrib = outk[4:16]
     new_pt = measuring & ~matched
@@ -154,7 +171,8 @@ def fuse(
         torch.zeros_like(us),
     )
     slot_ids = torch.arange(cap, device=dev)
-    is_winner = proj_ok & (pred.index.reshape(-1)[wflat] == slot_ids)
+    is_winner = proj_ok & (pred.index.reshape(-1)[wflat]
+                           == slot_ids + (id_base or 0))
     got = contrib.reshape(12, -1)[:, wflat]
     got = torch.where(is_winner[None], got, torch.zeros_like(got))
     sum_a, sum_af = got[0], got[1]
@@ -177,10 +195,16 @@ def fuse(
     # --- append new unstable surfels (data.geom:36-49) ---
     # A stable sort brings the new points' pixel rows to a dense prefix in
     # raster order; slot s of the map then takes row s - count when that row
-    # exists and the slot is free.  Appends clamp at capacity.
+    # exists and the slot is free.  Appends clamp at capacity.  n_app: the
+    # frame's append count (the same on every shard); n_new: the slots THIS
+    # call writes (none off the owner shard).
     npm = new_pt.reshape(-1)
     count = m.count.to(torch.int64)
-    n_new = torch.minimum(npm.sum(), cap - count)
+    free = cap - count if append_free is None else append_free
+    n_app = torch.minimum(npm.sum(), free)
+    n_new = n_app if append_on is None else torch.where(
+        torch.as_tensor(append_on, device=dev), n_app, torch.zeros_like(n_app))
+    n_new = torch.minimum(n_new, cap - count)
 
     _, px_perm = torch.sort((~npm).to(torch.int8), stable=True)
     ticks = tickf.expand(n_px)
@@ -233,11 +257,11 @@ def fuse(
     # new point's slot is count + its exclusive-prefix rank
     npm_i = npm.to(torch.int64)
     rank = (torch.cumsum(npm_i, 0) - npm_i).reshape(H, W)
-    app_px = new_pt & (rank < n_new)
+    app_px = new_pt & (rank < n_app)
     z_new = v_local[2]
     # z-buffer vs the existing winner (ties keep the old, lower id)
     app_wins = app_px & (~idx_valid | (z_new < p_vert[2]))
-    new_ids = (count + rank).to(torch.int32)
+    new_ids = ((count if append_base is None else append_base) + rank).to(torch.int32)
     p_index = torch.where(app_wins, new_ids, pred.index)
     p_vert = torch.where(app_wins[None], v_local, p_vert)
     p_norm = torch.where(app_wins[None], n_local, p_norm)
@@ -274,12 +298,18 @@ def clean(
     free-space violation), or it timed out unstable (age>20 & conf<thresh);
     surfels outside the time window always survive.
 
-    Exact float32 window patch only; the deformation inputs of the reference
-    (`deformed`, `depth_synth`) come with loop closure (ROADMAP M9)."""
-    if fx16_patch:
-        raise NotImplementedError(
-            "fx16_patch: the u16 fixed-point window patch is not ported yet "
-            "(ROADMAP M12)")
+    The window's 5 candidate channels are gathered per surfel at its centre
+    pixel, exactly in float32, or with `fx16_patch` as the reference's u16
+    fixed-point patch (ref ops/fuse.py:507-531): the 45 shifted channel
+    images quantized by `gatherpack.pack_fx16` and decoded per surfel, so
+    every test compares the reference's decoded values.  The flag tests sit
+    at the mid-points 0.5 / 2.5 because a decoded flag can land an ulp below
+    its integer.  The older-candidate test on decoded creation ticks takes a
+    half-tick margin, `c_it < init_t - 0.5`, which on integer ticks is the
+    exact `<`; the reference's strict `<` on the decoded value can flip when
+    a decode lands just below an equal tick.  The deformation inputs of the
+    reference (`deformed`, `depth_synth`) are applied by the engine's closure
+    repair instead."""
     cap = m.capacity
     H, W = cam.height, cam.width
     dev = m.pos.device
@@ -317,29 +347,36 @@ def clean(
         in_view, torch.clamp(py, 0, H - 1) * W + torch.clamp(px, 0, W - 1),
         torch.zeros_like(px),
     )
+    offsets = [(iy, ix) for iy in (-1, 0, 1) for ix in (-1, 0, 1)]
+    if fx16_patch:
+        patch = gather_fx16(pack_fx16(
+            [c for iy, ix in offsets for c in shift2d(chans, iy, ix)]), flat)
+        window = [patch[5 * k:5 * k + 5] for k in range(9)]
+        older_than = m.init_t - 0.5
+    else:
+        window = (shift2d(chans, iy, ix).reshape(5, -1)[:, flat] for iy, ix in offsets)
+        older_than = m.init_t
     count = torch.zeros((cap,), dtype=torch.float32, device=dev)
     zcount = torch.zeros((cap,), dtype=torch.float32, device=dev)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
-    for iy, wy in zip((-1, 0, 1), _W3):
-        for ix, wx in zip((-1, 0, 1), _W3):
-            w = torch.full((), wx * wy, dtype=torch.float32, device=dev)
-            c_flag, c_z, c_x, c_y, c_it = shift2d(chans, iy, ix).reshape(5, -1)[:, flat]
-            has = (c_flag >= 0.5) & in_view
-            behind_me = c_z > lp[2]
-            dz = c_z - lp[2]
-            dxy = torch.sqrt((c_x - lp[0]) ** 2 + (c_y - lp[1]) ** 2)
-            # merged-candidate overlap (copy_unstable.vert:84-96)
-            count += torch.where(
-                has & (c_it < m.init_t) & behind_me & (dz < 0.01)
-                & (dxy < m.radius * 1.4),
-                w, zero,
-            )
-            # free-space violation (copy_unstable.vert:98-106)
-            zcount += torch.where(
-                has & (c_flag >= 2.5) & behind_me & (dz > 0.01)
-                & (torch.abs(ln[2]) > 0.85),
-                w, zero,
-            )
+    for (iy, ix), (c_flag, c_z, c_x, c_y, c_it) in zip(offsets, window):
+        w = torch.full((), _W3[iy + 1] * _W3[ix + 1], dtype=torch.float32, device=dev)
+        has = (c_flag >= 0.5) & in_view
+        behind_me = c_z > lp[2]
+        dz = c_z - lp[2]
+        dxy = torch.sqrt((c_x - lp[0]) ** 2 + (c_y - lp[1]) ** 2)
+        # merged-candidate overlap (copy_unstable.vert:84-96)
+        count += torch.where(
+            has & (c_it < older_than) & behind_me & (dz < 0.01)
+            & (dxy < m.radius * 1.4),
+            w, zero,
+        )
+        # free-space violation (copy_unstable.vert:98-106)
+        zcount += torch.where(
+            has & (c_flag >= 2.5) & behind_me & (dz > 0.01)
+            & (torch.abs(ln[2]) > 0.85),
+            w, zero,
+        )
 
     keep = ~((count > 8.0) | (zcount > 4.0))
     # stale unstable (copy_unstable.vert:120-123)

@@ -59,6 +59,42 @@ def _camera_frame(m: SurfelMap, T_wc: torch.Tensor):
     return pos_c, normal_c
 
 
+def _point_keys(
+    pos_c: torch.Tensor,
+    valid: torch.Tensor,
+    cam: CameraConfig,
+    slot_live: torch.Tensor,
+    id_base: int = 0,
+) -> torch.Tensor:
+    """Per-pixel minimum raster key `quantized depth << 32 | (id_base + slot)`
+    over the surfels that project there, `[H*W]` int64, `_EMPTY_KEY` where
+    none does (see `_point_raster`).  With `id_base` a shard's first global
+    id, the minimum over the shards' key images is the key the whole map
+    gives."""
+    H, W = cam.height, cam.width
+    N = pos_c.shape[1]
+    z = pos_c[2]
+    safe_z = torch.where(torch.abs(z) > 1e-12, z, torch.ones_like(z))
+    u = torch.floor(pos_c[0] * cam.fx / safe_z + cam.cx).to(torch.int64)
+    v = torch.floor(pos_c[1] * cam.fy / safe_z + cam.cy).to(torch.int64)
+    ok = valid & slot_live & (z > 0) & (u >= 0) & (v >= 0) & (u < W) & (v < H)
+    pix = torch.where(ok, v * W + u, torch.full_like(u, H * W))  # spill slot
+
+    ids = torch.arange(N, dtype=torch.int64, device=z.device) + id_base
+    zq = torch.clamp((z * (8192.0 / 20.0)).to(torch.int64), 0, (1 << _ZB) - 1)
+    key = (zq << 32) | ids
+    best = torch.full((H * W + 1,), _EMPTY_KEY, dtype=torch.int64, device=z.device)
+    best.scatter_reduce_(0, pix, key, reduce="amin", include_self=True)
+    return best[: H * W]
+
+
+def winner_ids(best: torch.Tensor, cam: CameraConfig) -> torch.Tensor:
+    """Raster keys → winner id image [H,W] (int64, INVALID_ID where empty)."""
+    winner = torch.where(best == _EMPTY_KEY,
+                         torch.full_like(best, INVALID_ID), best & 0xFFFFFFFF)
+    return winner.reshape(cam.height, cam.width)
+
+
 def _point_raster(
     pos_c: torch.Tensor,
     valid: torch.Tensor,
@@ -76,24 +112,7 @@ def _point_raster(
     order the reference package's stable sort on (pixel, depth bucket)
     yields.  The quantization (20 m over 2^13 buckets) only coarsens the
     tie-break; all downstream geometry uses exact values."""
-    H, W = cam.height, cam.width
-    N = pos_c.shape[1]
-    z = pos_c[2]
-    safe_z = torch.where(torch.abs(z) > 1e-12, z, torch.ones_like(z))
-    u = torch.floor(pos_c[0] * cam.fx / safe_z + cam.cx).to(torch.int64)
-    v = torch.floor(pos_c[1] * cam.fy / safe_z + cam.cy).to(torch.int64)
-    ok = valid & slot_live & (z > 0) & (u >= 0) & (v >= 0) & (u < W) & (v < H)
-    pix = torch.where(ok, v * W + u, torch.full_like(u, H * W))  # spill slot
-
-    ids = torch.arange(N, dtype=torch.int64, device=z.device)
-    zq = torch.clamp((z * (8192.0 / 20.0)).to(torch.int64), 0, (1 << _ZB) - 1)
-    key = (zq << 32) | ids
-    best = torch.full((H * W + 1,), _EMPTY_KEY, dtype=torch.int64, device=z.device)
-    best.scatter_reduce_(0, pix, key, reduce="amin", include_self=True)
-    best = best[: H * W]
-    winner = torch.where(best == _EMPTY_KEY,
-                         torch.full_like(best, INVALID_ID), best & 0xFFFFFFFF)
-    return winner.reshape(H, W)
+    return winner_ids(_point_keys(pos_c, valid, cam, slot_live), cam)
 
 
 def _gather_rows(rows, winner: torch.Tensor, N: int):

@@ -12,8 +12,18 @@ truth) reports ATE RMSE as one JSON line of stats.
 
 Runs on the CUDA card unless `-device` names something else (`-device cpu`
 takes the plain PyTorch versions of the kernels); without a card the default
-raises.  The multi-device flags (`-mesh`, `-dist-*`) are not ported yet
-(ROADMAP M11) and raise.
+raises.  A `.klg` is decoded natively where the host can build the decoder
+(the stats line names the decoder).
+
+Multi-device and multi-process runs, as the reference's flags:
+`-mesh S` shards the surfel map over S sub-maps (one process: on
+`cuda:0..S-1`, or all on `-device` when it is given); `-dist-coordinator
+host:port -dist-nprocs W -dist-rank r` starts W processes of the same run
+over `torch.distributed` (gloo), the S sub-maps spread over them and the fern
+database partitioned, every rank writing the same trajectory:
+
+    python -m elasticfusion_tpu_torch.tools.run_slam -l seq.klg -mesh 2 \
+        -dist-coordinator localhost:29500 -dist-nprocs 2 -dist-rank 0 -o r0
 """
 
 from __future__ import annotations
@@ -62,15 +72,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-device", dest="device", default="cuda",
                    help="torch device: cuda (the default; raises without a card) "
                         "or cpu (the plain PyTorch versions of the kernels)")
-    # multi-process / multi-device flags of the reference (ROADMAP M11)
+    # multi-process bring-up (parallel/distributed.py): every process runs
+    # the same loop over the same stream; the map's sub-maps span the
+    # processes and the fern DB is partitioned per process
     p.add_argument("-dist-coordinator", dest="dist_coordinator", default=None,
-                   help="not ported yet (ROADMAP M11)")
-    p.add_argument("-dist-nprocs", dest="dist_nprocs", type=int, default=None,
-                   help="not ported yet (ROADMAP M11)")
-    p.add_argument("-dist-rank", dest="dist_rank", type=int, default=None,
-                   help="not ported yet (ROADMAP M11)")
+                   help="torch.distributed coordinator address host:port")
+    p.add_argument("-dist-nprocs", dest="dist_nprocs", type=int, default=None)
+    p.add_argument("-dist-rank", dest="dist_rank", type=int, default=None)
     p.add_argument("-mesh", dest="mesh", type=int, default=None,
-                   help="not ported yet (ROADMAP M11)")
+                   help="shard the surfel map over N sub-maps")
     return p
 
 
@@ -102,20 +112,32 @@ def make_config(args):
         frame_to_frame_rgb=args.frame_to_frame,
         fast_odom=args.fast_odom,
         max_surfels=args.max_surfels,
+        mesh_shape=(args.mesh,) if args.mesh else None,
     )
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.mesh or args.dist_coordinator or args.dist_nprocs or args.dist_rank is not None:
-        raise NotImplementedError(
-            "-mesh / -dist-*: multi-device maps and multi-process runs are not "
-            "ported to elasticfusion_tpu_torch yet (ROADMAP M11)")
 
     from .._device import resolve_device
+    from ..parallel.distributed import initialize_from_env
+
+    grouped = initialize_from_env(args.dist_coordinator, args.dist_nprocs,
+                                  args.dist_rank)
+    try:
+        return _run(args, resolve_device)
+    finally:
+        if grouped:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _run(args, resolve_device) -> int:
     from ..engine import Engine
-    from ..io.klg import open_klg
+    from ..io.klg import decoder_in_use, open_klg
     from ..io.trajectory import ate_rmse, read_freiburg
+    from ..parallel.distributed import PartitionedFerns, world
 
     # "cuda" resolves like the engine's default: it raises without a card
     device = resolve_device(None if args.device == "cuda" else args.device)
@@ -135,7 +157,13 @@ def main(argv=None) -> int:
     if args.skip:
         reader.fast_forward(args.skip)
 
-    eng = Engine(cfg, device)
+    # a sharded map on the default device: cuda:0..S-1 (or the rank's card)
+    eng = Engine(cfg, None if cfg.mesh_shape and args.device == "cuda" else device)
+    n_procs, rank = world()
+    if eng.ferns is not None and n_procs > 1:
+        # each process keeps the keyframes it owns; retrieval resolves ONE
+        # global winner, so closure decisions are the same on every rank
+        eng.ferns = PartitionedFerns(eng.ferns, n_procs, rank)
     n_done = 0
     n_skipped = 0
     stats_f = open(args.stats, "w") if args.stats else None
@@ -201,6 +229,11 @@ def main(argv=None) -> int:
         "fern_keyframes": len(eng.ferns.frames) if eng.ferns else 0,
         "trajectory": traj,
     }
+    if args.log:
+        stats["klg_decoder"] = decoder_in_use()
+    if cfg.mesh_shape is not None:
+        stats["mesh"] = list(cfg.mesh_shape)
+        stats["processes"] = n_procs
 
     if args.groundtruth:
         from ..io.tum import read_groundtruth

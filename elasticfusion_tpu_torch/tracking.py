@@ -182,7 +182,7 @@ def get_incremental_transformation(
     if cfg.fx16_tables:
         raise NotImplementedError(
             "fx16_tables: the u16 fixed-point gather tables are not ported "
-            "yet (ROADMAP M12)")
+            "yet (ROADMAP M12 (b))")
     cam = cfg.camera
     dev = inputs.vmaps_curr[0].device
     icp_on = (not cfg.rgb_only) and cfg.icp_weight > 0

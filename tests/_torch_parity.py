@@ -57,9 +57,12 @@ def rot_err(Ta: np.ndarray, Tb: np.ndarray) -> float:
     return float(2.0 * np.arcsin(min(chord, 1.0)))
 
 
-def run_reference_child(func: str, out_path, *args: str, timeout: float = 1200.0):
+def run_reference_child(func: str, out_path, *args: str, timeout: float = 1200.0,
+                        cpu_devices: int = 1):
     """Run `tests/<module>.py::<function>(out_path, *args)` of the reference
-    package in a child interpreter and load the `.npz`/pickle it writes.
+    package in a child interpreter and load the `.npz`/pickle it writes
+    (`cpu_devices` > 1: a virtual CPU mesh of that many devices, for the
+    reference's `mesh_shape` engine).
 
     A reference run that goes through un-jitted JAX calls (host
     orchestration: `Deformation.constrain`, `Ferns`, `Engine`) compiles one
@@ -72,7 +75,7 @@ def run_reference_child(func: str, out_path, *args: str, timeout: float = 1200.0
     import subprocess
     import sys
 
-    code, env, cwd = _child_command(func)
+    code, env, cwd = _child_command(func, cpu_devices)
     for attempt in range(2):
         out = subprocess.run([sys.executable, "-c", code, str(out_path), *args],
                              cwd=cwd, env=env, capture_output=True,
@@ -84,7 +87,7 @@ def run_reference_child(func: str, out_path, *args: str, timeout: float = 1200.0
             raise RuntimeError(f"reference run {func} failed:\n{out.stderr[-4000:]}")
 
 
-def _child_command(func: str):
+def _child_command(func: str, cpu_devices: int = 1):
     """(code, environment, working directory) of a reference child running
     `tests/<module>.py::<function>`."""
     import os
@@ -102,6 +105,9 @@ def _child_command(func: str):
         f"m.{name}(*sys.argv[1:])\n"
     )
     env = dict(os.environ, JAX_PLATFORMS="cpu")
+    if cpu_devices > 1:
+        env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "") + " --xla_force_host_platform_"
+                            f"device_count={cpu_devices}").strip()
     env["PYTHONPATH"] = os.pathsep.join(
         [os.path.dirname(here), here, env.get("PYTHONPATH", "")])
     return code, env, os.path.dirname(here)
@@ -113,12 +119,13 @@ class ReferenceChild:
     `result()` waits for it (a child killed by a signal is run once more, in
     the foreground)."""
 
-    def __init__(self, func: str, out_path, *args: str, timeout: float = 1200.0):
+    def __init__(self, func: str, out_path, *args: str, timeout: float = 1200.0,
+                 cpu_devices: int = 1):
         import subprocess
         import sys
 
-        self._call = (func, out_path, args, timeout)
-        code, env, cwd = _child_command(func)
+        self._call = (func, out_path, args, timeout, cpu_devices)
+        code, env, cwd = _child_command(func, cpu_devices)
         # a file, not a pipe: nobody reads the child's stderr while it runs
         self._err = open(str(out_path) + ".stderr", "w+")
         self._proc = subprocess.Popen(
@@ -128,7 +135,7 @@ class ReferenceChild:
     def result(self):
         import pickle
 
-        func, out_path, args, timeout = self._call
+        func, out_path, args, timeout, cpu_devices = self._call
         self._proc.wait(timeout=timeout)
         self._err.seek(0)
         err = self._err.read()
@@ -138,4 +145,5 @@ class ReferenceChild:
                 return pickle.load(f)
         if self._proc.returncode > 0:
             raise RuntimeError(f"reference run {func} failed:\n{err[-4000:]}")
-        return run_reference_child(func, out_path, *args, timeout=timeout)
+        return run_reference_child(func, out_path, *args, timeout=timeout,
+                                   cpu_devices=cpu_devices)

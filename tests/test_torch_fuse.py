@@ -200,10 +200,16 @@ def test_fuse_leaves_its_input_map_untouched(scene, port_run):
 
 
 def test_clean_raises_for_the_unported_fixed_point_patch(scene, port_run):
+    """The u16 fixed-point patch is ported now (held against the reference's
+    in tests/test_torch_fx16.py): on this frame it makes the exact patch's
+    decisions, and the surviving rows are the exact patch's."""
     m2, _, upd = port_run[:3]
-    with pytest.raises(NotImplementedError):
-        port_fuse.clean(m2, upd, tt(scene["T"]), TICK, scene["port_cam"], 0.5, 200,
-                        20.0, 20, fx16_patch=True)
+    args = (m2, upd, tt(scene["T"]), TICK, scene["port_cam"], 0.5, 200, 20.0, 20)
+    fx16 = port_fuse.clean(*args, fx16_patch=True)
+    exact = port_fuse.clean(*args)
+    assert int(fx16.count) == int(exact.count) > 0
+    for f, a in convert.surfel_map_to_numpy(fx16).items():
+        np.testing.assert_array_equal(a, convert.surfel_map_to_numpy(exact)[f], err_msg=f)
 
 
 def _kernel_constant(name):

@@ -11,7 +11,7 @@ import torch
 
 from elasticfusion_tpu import io as ref_io
 from elasticfusion_tpu.utils.synthetic import pose_from_xyzrpy
-from elasticfusion_tpu_torch import _device
+from elasticfusion_tpu_torch import _build, _device
 from elasticfusion_tpu_torch import io as port_io
 from elasticfusion_tpu_torch.io import ply as port_ply
 from elasticfusion_tpu_torch.io.groundtruth import GroundTruthOdometry as PortGT
@@ -59,7 +59,15 @@ def test_klg_decodes_identically_in_both(tmp_path, writer, compress):
     for a, b in zip(got["port"][0], got["ref"][0]):
         assert a[0] == b[0] and np.array_equal(a[1], b[1]) and np.array_equal(a[2], b[2])
     assert got["port"][1:] == got["ref"][1:] == (frames[0][0], frames[3][0])
-    assert isinstance(port_io.open_klg(p, W, H), port_io.KlgLogReader)
+    # open_klg takes the port's native decoder where this host builds it
+    # (tests/test_torch_native_klg.py holds it), else the Python one
+    native = not _build.host_toolchain_missing("klg_decoder")
+    r = port_io.open_klg(p, W, H)
+    assert type(r) is (port_io.NativeKlgLogReader if native else port_io.KlgLogReader)
+    for (ts, d, rgb), f in zip(frames, r):
+        assert f.timestamp == ts
+        np.testing.assert_array_equal(f.depth_mm, d)
+        np.testing.assert_array_equal(f.rgb, rgb)
 
 
 @pytest.mark.parametrize("cut", [0.5, 0.9], ids=["payload", "tail"])

@@ -5,10 +5,10 @@ converted state; the port's `Engine.process_frame` against its own
 loop-closure and pipelined configurations, external poses and checkpoints
 that run, no CPU fall-back, nothing of JAX imported by the port).
 
-Held against the reference's `slam_step` with `fx16_clean=False`: the port
-has the exact float32 `clean` only, and its `slam_step` raises when the flag
-is set (its `Engine` ignores the flag exactly as the reference's
-`_frame_main` does)."""
+Held against the reference's `slam_step` with `fx16_clean=False` (the exact
+float32 `clean`; both `slam_step`s honour the flag, which
+tests/test_torch_fx16.py holds at its default, and both `Engine`s ignore it
+in `_frame_main`)."""
 
 import subprocess
 import sys
@@ -159,8 +159,8 @@ def test_engine_grows_the_map_before_it_overflows(frames):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (dict(mesh_shape=(2,)), "M11"),
-    (dict(fx16_tables=True), "M12"),
+    # mesh_shape is ported now: tests/test_torch_shard.py
+    pytest.param(dict(fx16_tables=True), "M12", id="flags1-M12"),
 ])
 def test_unported_flags_raise(flags, item):
     cfg = PortConfig(**{"closeLoops": False, **flags})
@@ -221,9 +221,11 @@ def test_unported_entry_points_raise(frames):
     eng = port_engine.Engine(cfg, device="cpu")
     d, rgb = rendered[0]
     eng.process_frame(rgb, d, in_T_wc=poses[0])
-    with pytest.raises(NotImplementedError, match="fx16_clean"):   # default cfg sets it
-        port_engine.slam_step(eng.map, None, None, None, None, None, None, None, 2.0,
-                              1.0, cfg)
+    # fx16_clean (the default) runs now; the tracking tables do not
+    with pytest.raises(NotImplementedError, match="fx16_tables"):
+        port_engine.slam_step(eng.map, eng._T_f32, eng._so3_hist, *eng._fill,
+                              tt(d.astype(np.float32)), tt(rgb), 2.0, 1.0,
+                              cfg.with_(fx16_tables=True))
 
 
 def test_external_poses_after_the_first_frame_run(frames):

@@ -60,14 +60,37 @@ def test_the_scan_covers_io_tools_and_checkpoint():
             "tools/camera.py", "tools/report.py", "tools/view_map.py"} <= rel
 
 
+def test_the_scan_covers_the_parallel_modules():
+    rel = {os.path.relpath(p, PKG) for p in _python_sources()}
+    assert {"parallel/__init__.py", "parallel/sharding.py", "parallel/shard_step.py",
+            "parallel/distributed.py", "ops/gatherpack.py"} <= rel
+
+
 @pytest.mark.parametrize("path", _python_sources(),
                          ids=lambda p: os.path.relpath(p, REPO))
 def test_reads_no_native_decoder(path):
-    """The port's `.klg` reader decodes in Python: no module loads the
-    reference's native decoder library."""
+    """No port module loads the reference's native decoder library
+    (`native/libefklg.so`): the port builds its own from
+    `csrc/klg_decoder.cpp`."""
     with open(path, encoding="utf-8") as f:
         text = f.read()
-    assert "libefklg" not in text and "klg_decoder" not in text
+    assert "libefklg" not in text
+    assert not re.search(r"native[/\\]", text), "names a path in native/"
+
+
+def test_the_port_carries_its_own_klg_decoder():
+    """`csrc/klg_decoder.cpp` with the reference's C interface, built by the
+    host compiler into the port's build directory, never from `native/`."""
+    assert set(_build.HOST_SOURCES) == {"klg_decoder"}
+    with open(os.path.join(PKG, "csrc", "klg_decoder.cpp"), encoding="utf-8") as f:
+        text = f.read()
+    for symbol in ("ef_klg_open", "ef_klg_num_frames", "ef_klg_read", "ef_klg_close"):
+        assert re.search(r"\b" + symbol + r"\(", text), symbol
+    assert 'extern "C"' in text
+    assert _build._host_target("klg_decoder").startswith(_build.BUILD_DIR)
+    libs = [v[2] for v in _build._host_variants("klg_decoder")]
+    assert libs[0] == ["-lz", "-ljpeg"]                      # libjpeg first
+    assert all("-lz" in v and not any("native" in x for x in v) for v in libs)
 
 
 def _kernel_function_calls(module):

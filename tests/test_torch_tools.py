@@ -91,10 +91,20 @@ def test_run_slam_writes_map_and_stats(slam_run, sequence):
 
 @pytest.mark.parametrize("flags", [["-mesh", "2"], ["-dist-rank", "0"],
                                    ["-dist-coordinator", "localhost:1234"]])
-def test_run_slam_multi_device_flags_raise(sequence, flags):
+def test_run_slam_multi_device_flags_raise(sequence, flags, tmp_path, capsys):
+    """The multi-device flags are ported: `-mesh 2` runs the map as two
+    sub-maps, a rank alone is one process (as in the reference), and a
+    coordinator without the process count and the rank raises."""
     d, _ = sequence
-    with pytest.raises(NotImplementedError, match="M11"):
-        run_slam.main(_argv(d, "-device", "cpu", *flags))
+    if flags[0] == "-dist-coordinator":
+        with pytest.raises(ValueError, match="coordinator"):
+            run_slam.main(_argv(d, "-device", "cpu", *flags))
+        return
+    assert run_slam.main(_argv(d, "-device", "cpu", "-o", str(tmp_path / "m"),
+                               *flags)) == 0
+    stats = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert stats["frames"] == N
+    assert stats.get("mesh") == ([2] if flags[0] == "-mesh" else None)
 
 
 def test_entry_points_need_a_card_unless_the_cpu_is_asked_for(sequence, tmp_path):
