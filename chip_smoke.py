@@ -19,7 +19,10 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      `rgb_residual`, `rgb_step` (at all three pyramid levels, on the tensors
      of a tracked frame) and `so3_step` (160x120), `splat_resolve`, and
      `fuse_window` (bit-identical to its plain version on the frame, on a
-     crop read in place and on a contiguous crop of odd width);
+     crop read in place and on a contiguous crop of odd width); and
+     `icp_step` on the u16 fixed-point model table (`fx16_tables`) at the
+     three levels of a frame tracked with it, its decoded values against the
+     plain version's;
   4. the main path: `Engine.process_frame` over 6 warm-up + 30 frames of the
      640x480 synthetic sweep, twice; launch counts (every kernel of the path
      launched, `gram_outer` not at all), pose error against the known poses,
@@ -58,14 +61,23 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      collectives, launches and ms per frame; (d) loop closures on sub-maps;
      (e) two `run_slam -mesh 2` ranks over gloo on the card, their
      trajectories equal to the one-process run's;
-  8. one JSON line `{"kernels": [...]}` (entries with `caller` are the
-     model-to-model and fern-ICP runs of the tracking steps);
-  9. last line `{"ok": true, "device": {...}}`.
+  8. the last modules of the port, each run read with the counts set to 0
+     just before it: (a) `Engine.process_frame` with `fx16_tables` on 12
+     sweep frames (every ICP launch of the fixed-point form), and one
+     640x480 solve with the tables on against off; (b) `tools/scaling_bench`
+     (`-n 2 -cap 20 -frames 5` and `-crossover -n 2 -cap 22 -frames 3`, both
+     sub-maps on this card): the reference's keys, the collectives of the
+     group's calls, one sub-map bit-identical to the one-device step;
+  9. one JSON line `{"kernels": [...]}` (entries with `caller` are the
+     model-to-model and fern-ICP runs of the tracking steps, the sharded
+     callers of K2 / K3 and the fixed-point `icp_step`);
+ 10. last line `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import re
 import subprocess
@@ -94,6 +106,7 @@ from elasticfusion_tpu_torch.ops.fuse_window import (  # noqa: E402
     fuse_window_plain,
     tma_layout,
 )
+from elasticfusion_tpu_torch.ops.gatherpack import gather_fx16  # noqa: E402
 from elasticfusion_tpu_torch.ops.gram import gram_outer, gram_outer_plain  # noqa: E402
 from elasticfusion_tpu_torch.ops.preprocess import (  # noqa: E402
     compute_nmap,
@@ -340,7 +353,7 @@ class CallerCounts:
                   f"{n} poses + {gn} Gauss-Newton iterations, launches {L}")
 
 
-def capture_kernel_inputs(cam, frames):
+def capture_kernel_inputs(cam, frames, cfg=None):
     """Run the first frames of the sweep and keep the tensors the main path
     hands to its kernels on the last of them: real winner channels and a real
     fused frame for K2 and K3 (so hits, blends, merges and appends all occur),
@@ -348,7 +361,7 @@ def capture_kernel_inputs(cam, frames):
     at every pyramid level (keyed by the level's image height)."""
     captured = {}
     with StepRecorder(captured):
-        eng = Engine(engine_config(cam), device=DEV)
+        eng = Engine(cfg or engine_config(cam), device=DEV)
         for i in range(5):
             d, r = frames[i]
             eng.process_frame(r, d, timestamp=i)
@@ -379,6 +392,36 @@ def gram_agrees(what, got, plain, n_pixels, max_flips=None):
     return worst, dc
 
 
+def icp_float64_distance(what, a, kw, got, plain) -> None:
+    """Print how far the kernel's and the plain version's Gram blocks lie
+    from the same formula evaluated in float64 on the same inputs: the
+    float32 rounding each carries (the residual n.(s - d) subtracts two
+    positions of metres, so b is the noisiest block)."""
+    from elasticfusion_tpu_torch.ops import odometry as odo
+
+    def gram64(rows, valid):
+        G = rows.double() @ rows.double().T
+        return odo.Gram(A=G[:6, :6], b=G[:6, 6], sum_sq=G[6, 6], count=valid.sum())
+
+    real = odo._gram_from_rows, odo.gather_fx16
+    odo._gram_from_rows = gram64
+    odo.gather_fx16 = lambda t, f: [c.double() for c in real[1](t, f)]
+    try:
+        a64 = [x.double() if isinstance(x, torch.Tensor) else x for x in a]
+        t = kw.get("prev_table")
+        kw64 = dict(kw, prev_table=t.double() if isinstance(t, torch.Tensor) else t)
+        ref = icp_step_plain(*a64, **kw64)
+    finally:
+        odo._gram_from_rows, odo.gather_fx16 = real
+    line = f"  {what} against float64 (count {int(ref.count)}):"
+    for blk in ("A", "b", "sum_sq"):
+        e = getattr(ref, blk)
+        line += (f" {blk} kernel {float((getattr(got, blk).double() - e).abs().max()):.3e}, "
+                 f"plain {float((getattr(plain, blk).double() - e).abs().max()):.3e} "
+                 f"(1e-4 x max {1e-4 * float(e.abs().max()):.3e});")
+    print(line, flush=True)
+
+
 def check_steps_at(cap_in, caller, H, W, names=("icp_step", "rgb_residual", "rgb_step")):
     """The tracking steps `names` against their plain versions on the
     arguments of `caller`'s last Gauss-Newton iteration at the level of
@@ -394,6 +437,7 @@ def check_steps_at(cap_in, caller, H, W, names=("icp_step", "rgb_residual", "rgb
     a, kw = cap_in[("icp_step", caller, H)]
     got, again, plain = icp_step(*a, **kw), icp_step(*a, **kw), icp_step_plain(*a, **kw)
     torch.cuda.synchronize()
+    icp_float64_distance(f"{caller} icp_step {tag}", a, kw, got, plain)
     err, _ = gram_agrees(f"{caller} icp_step {tag}", got, plain, N)
     check(all(torch.equal(x, y) for x, y in zip(got, again)),
           f"{caller} icp_step {tag} bit-identical on repeat")
@@ -515,6 +559,83 @@ def phase_tracking_kernels(cam, cap_in, entries):
         library_ms=None)
 
 
+_FX16_DECODE_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                         ctypes.c_void_p, ctypes.c_void_p)
+
+
+def fx16_decoded_on_card(table) -> torch.Tensor:
+    """The whole fixed-point table decoded by the card, [6, T], with the
+    decode of icp_step's fixed-point form (`ef_fx16_decode`, a probe of
+    odometry_steps.cu that no path runs)."""
+    _, words, los, scales = table
+    T = words.shape[1]
+    out = torch.empty((6, T), dtype=torch.float32, device=words.device)
+    fn = _build.kernel_function("odometry_steps", "ef_fx16_decode", _FX16_DECODE_ARGTYPES)
+    _build.check_launch(fn(words.data_ptr(), los.data_ptr(), scales.data_ptr(), T,
+                           out.data_ptr(), torch.cuda.current_stream().cuda_stream),
+                        "fx16_decode")
+    return out
+
+
+def check_icp_fx16_at(cap_in, caller, H, W):
+    """icp_step on the fixed-point model table against its plain version on
+    the arguments of `caller`'s last Gauss-Newton iteration at the level of
+    height H: the Gram blocks as the float32 form's (1e-4), the count within
+    the same flips (printed), bit-identical on repeat; the card's decoded
+    values against the plain version's (float64, rounded once to float32:
+    equal but where that rounds twice, printed).  Returns the level's
+    numbers."""
+    F32 = 4
+    N = H * W
+    tag = f"{W}x{H}"
+    check(("icp_step", caller, H) in cap_in, f"{caller} ran icp_step at {tag}")
+    a, kw = cap_in[("icp_step", caller, H)]
+    table = kw["prev_table"]
+    check(isinstance(table, tuple) and table[0] == "fx16"
+          and tuple(table[1].shape) == (3, N),
+          f"{caller} icp_step {tag} was handed a fixed-point table [3, {N}]")
+    got, again, plain = icp_step(*a, **kw), icp_step(*a, **kw), icp_step_plain(*a, **kw)
+    torch.cuda.synchronize()
+    icp_float64_distance(f"{caller} icp_step fx16 {tag}", a, kw, got, plain)
+    err, flips = gram_agrees(f"{caller} icp_step fx16 {tag}", got, plain, N)
+    print(f"  {caller} icp_step fx16 {tag}: count {float(got.count):.0f}, plain "
+          f"{float(plain.count):.0f}, net flips {flips:.0f}", flush=True)
+    check(all(torch.equal(x, y) for x, y in zip(got, again)),
+          f"{caller} icp_step fx16 {tag} bit-identical on repeat")
+    dec_k = fx16_decoded_on_card(table)
+    dec_p = torch.stack(gather_fx16(table, torch.arange(N, device=DEV)))
+    ulps = (dec_k.view(torch.int32).long() - dec_p.view(torch.int32).long()).abs()
+    n_diff = int((ulps > 0).sum())
+    check(int(ulps.max()) <= 1,
+          f"{caller} fx16 decode {tag}: {n_diff} of {6 * N} decoded values differ "
+          f"from the plain version's, by at most {int(ulps.max())} ulp")
+    v, n = a[1], a[2]
+    n_in = int(((v[2] > 0) & ((n * n).sum(0) > 1e-12)).sum())
+    # the current maps read once, three words gathered per candidate pixel,
+    # the two poses, the 12 range floats, the 44 floats written
+    f_bytes = (6 * N + 3 * n_in + 24 + 12 + 44) * F32
+    b_ms, b_by = bound(f_bytes, 170.0 * n_in)
+    return dict(
+        max_abs_err=err, bound_ms=b_ms, bound_by=b_by, bytes=f_bytes,
+        count_flips=flips, decode_values_differing=n_diff,
+        ms=time_ms(lambda: icp_step(*a, **kw), queue_first=True),
+        plain_ms=time_ms(lambda: icp_step_plain(*a, **kw), reps=5, warm=1))
+
+
+def phase_fx16_kernel(cam, frames, entries):
+    """icp_step's fixed-point form at the three levels of a frame tracked
+    with `fx16_tables`."""
+    cap_in = capture_kernel_inputs(cam, frames, engine_config(cam).with_(fx16_tables=True))
+    levels = {}
+    for lvl in range(3):
+        H, W = cam.height >> lvl, cam.width >> lvl
+        levels[f"{W}x{H}"] = check_icp_fx16_at(cap_in, "frame", H, W)
+    for (name, _), e in step_entries("frame", {"icp_step": levels},
+                                     f"{cam.width}x{cam.height}",
+                                     dict(caller="frame, fx16_tables")).items():
+        entries[(name, "fx16")] = e
+
+
 def phase_kernels(cam, frames, ptxas):
     print("== 3. kernels against their plain versions", flush=True)
     H, W = cam.height, cam.width
@@ -569,6 +690,7 @@ def phase_kernels(cam, frames, ptxas):
     check({"splat_resolve", "fuse_window"} <= set(cap_in),
           "the main path handed inputs to K2 and K3")
     phase_tracking_kernels(cam, cap_in, entries)
+    phase_fx16_kernel(cam, frames, entries)
 
     # K2.  tolerance: built without FMA contraction the kernel repeats the
     # plain version's roundings, so hit / front decisions agree; at most 0.01 %
@@ -678,6 +800,8 @@ WRAPPERS = {"gram_outer": gram_outer, "icp_step": icp_step,
             "fuse_window": fuse_window}
 # kernels that the main path no longer runs (their caller was fused)
 OFF_THE_PATH = {"gram_outer"}
+# the launches of icp_step's fixed-point form, counted apart (`fx16_tables`)
+ICP_FX16 = "icp_step fx16"
 
 
 def run_sweep(cam, frames, cfg=None):
@@ -719,11 +843,14 @@ def counted(fn):
                                         real_read_back(t))[1]
     for w in WRAPPERS.values():
         w.launches = 0
+    icp_step.launches_fx16 = 0
     try:
         out = fn(tracker_reads)
     finally:
         tracking_mod.read_back = real_read_back
-    return out, {k: w.launches for k, w in WRAPPERS.items()}, tracker_reads
+    launches = {k: w.launches for k, w in WRAPPERS.items()}
+    launches[ICP_FX16] = icp_step.launches_fx16
+    return out, launches, tracker_reads
 
 
 def check_launched(what, launches, on_path, per=None):
@@ -1708,6 +1835,182 @@ def phase_sharded(cam, frames, gt_poses, entries) -> None:
         print(f"  7(e) wall {e['wall']:.1f} s for the three processes [{smi}]", flush=True)
 
 
+# --- phase 8: fx16_tables, tools/scaling_bench -------------------------------
+
+N_FX16 = 12                    # sweep frames of (a), the last 6 timed
+# (a): the reference's fx16 on / off bound for one solve at 640x480
+# (tests/test_gatherpack.py:90-118)
+MAX_FX16_TRANS_M = 5e-4
+MAX_FX16_ROT_DEG = 0.05
+# (b): the reference tool's JSON keys (elasticfusion_tpu/tools/scaling_bench.py)
+SCALING_KEYS = {"backend", "capacity", "gspmd", "shard_map"}
+SCALING_LEG_KEYS = {"ms_per_step", "speedup", "efficiency", "collectives"}
+CROSSOVER_KEYS = {"capacity", "live", "camera", "backend", "results",
+                  "work_ratio_Nway_vs_1"}
+CROSSOVER_RESULT_KEYS = {"wall_ms_per_step", "cpu_s_per_step", "cpu_us_per_Msurfel"}
+
+
+def run_fx16_frames(cam, frames, cfg):
+    """(a): `Engine.process_frame` on N_FX16 sweep frames, the last half
+    timed."""
+    eng = Engine(cfg, device=DEV)
+    for i in range(N_FX16):
+        if i == N_FX16 // 2:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        d, r = frames[i]
+        eng.process_frame(r, d, timestamp=i)
+    eng.flush()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / (N_FX16 - N_FX16 // 2) * 1e3
+    return dict(traj=np.stack([T for _, T in eng.poses]), ms=ms, count=eng.surfel_count)
+
+
+def fx16_on_off_solve(cam):
+    """(a): the reference's one solve at 640x480 (its frame-0 model against a
+    frame 12 mm and 0.5 degrees on) with the tables on and off."""
+    from elasticfusion_tpu_torch.tracking import (
+        OdometryInputs,
+        build_current_frame_pyramids,
+        build_model_pyramids,
+        get_incremental_transformation,
+    )
+
+    scene = make_scene(n_side=1400)
+    T0, T1 = np.eye(4), pose_from_xyzrpy(x=0.012, yaw=np.deg2rad(0.5))
+    (d0, rgb0), (d1, rgb1) = (render_frame(scene[0], scene[1], T, cam) for T in (T0, T1))
+    rgb0, rgb1 = (torch.from_numpy(r).to(DEV) for r in (rgb0, rgb1))
+    poses = {}
+    for on in (True, False):
+        cfg = EngineConfig(camera=cam, fx16_tables=on)
+        depth0, depth1 = (metricise_depth(torch.from_numpy(d.astype(np.float32)).to(DEV),
+                                          cfg.max_depth_processed) for d in (d0, d1))
+        vm1, nm1, im1, _ = build_current_frame_pyramids(depth1, rgb1, cfg)
+        v0 = compute_vmap(depth0, cam, cfg.max_depth_processed)
+        T0_d = torch.from_numpy(T0.astype(np.float32)).to(DEV)
+        vg, ng, im0, dp0 = build_model_pyramids(v0, compute_nmap(v0), rgb0.float(), T0_d, cfg)
+        _, _, im0c, _ = build_current_frame_pyramids(depth0, rgb0, cfg)
+        res = get_incremental_transformation(OdometryInputs(
+            vmaps_curr=vm1, nmaps_curr=nm1, vmaps_prev_g=vg, nmaps_prev_g=ng,
+            last_images=im0, next_images=im1, last_depths=dp0, next_depths=dp0,
+            so3_last_image=im0c[2], T_prev=T0_d), cfg)
+        poses[on] = res.T_curr.cpu().numpy().astype(np.float64)
+    return poses[True], poses[False], T1
+
+
+def run_scaling_bench(argv):
+    """(b): `scaling_bench.main(argv)` in this process; returns the printed
+    JSON and the legs it measured."""
+    import contextlib
+    import io
+
+    from elasticfusion_tpu_torch.tools import scaling_bench
+
+    kept = {}
+    real = (scaling_bench.bench, scaling_bench.crossover_bench)
+
+    def keep(fn):
+        def wrapper(*a, **k):
+            kept["out"] = fn(*a, **k)
+            return kept["out"]
+        return wrapper
+
+    scaling_bench.bench, scaling_bench.crossover_bench = (keep(f) for f in real)
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = scaling_bench.main(argv)
+    finally:
+        scaling_bench.bench, scaling_bench.crossover_bench = real
+    check(rc == 0, f"8(b) scaling_bench {' '.join(argv)} exits {rc}")
+    return json.loads(buf.getvalue()), kept["out"][1]
+
+
+def check_collectives(what, collectives, calls, steps):
+    """The collectives of a step are the group's calls over the timed steps
+    divided by the steps, under the reference's names."""
+    from elasticfusion_tpu_torch.tools.scaling_bench import COLLECTIVE_NAMES
+
+    want = {}
+    for k, v in calls.items():
+        want[COLLECTIVE_NAMES[k]] = want.get(COLLECTIVE_NAMES[k], 0.0) + v / steps
+    check(collectives == want and sum(calls.values()) > 0,
+          f"{what}: collectives per step {collectives} = MapGroup.calls {calls} / {steps}")
+
+
+def phase_last_modules(cam, frames, gt_poses, main_ms, entries, smi) -> None:
+    """Phase 8 at 640x480 and scaling_bench's sizes, each run read with the
+    counts set to 0 just before it: (a) fx16_tables through the Engine and
+    one solve on / off; (b) scaling_bench, main and -crossover, with both
+    sub-maps on this card."""
+    print(f"== 8. fx16_tables and scaling_bench ({smi})", flush=True)
+    from elasticfusion_tpu_torch.parallel.shard_step import gather
+
+    # (a)
+    cfg_a = engine_config(cam).with_(fx16_tables=True)
+    a, launches_a, reads_a = counted(lambda _: run_fx16_frames(cam, frames, cfg_a))
+    tracked = N_FX16 - 1
+    check_launched("8(a) fx16_tables sweep", launches_a, FRAME_KERNELS | {ICP_FX16},
+                   per=tracked)
+    check(launches_a[ICP_FX16] == launches_a["icp_step"],
+          f"8(a) every one of the {launches_a['icp_step']} icp_step launches read the "
+          f"fixed-point table")
+    check_frame_reads("8(a) fx16_tables sweep", launches_a, reads_a, tracked)
+    terr, rerr = pose_error(a["traj"][-1], gt_poses[N_FX16 - 1])
+    check(terr < MAX_TRANS_ERR_M and rerr < MAX_ROT_ERR_DEG,
+          f"8(a) fx16_tables: pose error after {N_FX16} frames {terr * 1e3:.2f} mm / "
+          f"{rerr:.3f} deg (phase 4's bounds)")
+    entries[("icp_step", "fx16")]["launches"] = launches_a[ICP_FX16]
+    on, off, T1 = fx16_on_off_solve(cam)
+    dt = float(np.linalg.norm(on[:3, 3] - off[:3, 3]))
+    _, dr = pose_error(on, off)
+    check(dt < MAX_FX16_TRANS_M and dr < MAX_FX16_ROT_DEG,
+          f"8(a) one 640x480 solve, fx16 on against off: {dt * 1e3:.4f} mm / {dr:.5f} deg "
+          f"(bounds 0.5 mm / 0.05 deg; on is {pose_error(on, T1)[0] * 1e3:.3f} mm, off "
+          f"{pose_error(off, T1)[0] * 1e3:.3f} mm from the truth)")
+    print(f"  8(a) ms/frame with fx16_tables {a['ms']:.2f} (frames 7-12; phase 4 without "
+          f"{main_ms:.2f}, frames 7-36) [{smi}]", flush=True)
+
+    # (b)
+    argv = ["-n", "2", "-cap", "20", "-frames", "5", "-device", "cuda:0"]
+    (out, legs), launches_b, _ = counted(lambda _: run_scaling_bench(argv))
+    check_launched("8(b) scaling_bench", launches_b, FRAME_KERNELS)
+    print("  8(b) scaling_bench " + " ".join(argv) + ": " + json.dumps(out), flush=True)
+    check(SCALING_KEYS <= set(out) and all(SCALING_LEG_KEYS <= set(out[k])
+                                           for k in ("gspmd", "shard_map")),
+          "8(b) scaling_bench's JSON has the reference's keys")
+    sm = out["shard_map"]
+    for S in (1, 2):
+        check_collectives(f"8(b) S={S}", sm["collectives"][str(S)],
+                          dict(legs[S].map.group.calls), legs[S].steps)
+    one, s1 = legs["one_device"], legs[1]
+    g = gather(s1.map)
+    check(int(g.count) == int(one.map.count) > 0
+          and all(torch.equal(getattr(g, f), getattr(one.map, f)) for f in
+                  ("pos", "conf", "color", "init_t", "last_t", "normal", "radius"))
+          and all(np.array_equal(x, y) for x, y in zip(one.poses, s1.poses)),
+          f"8(b) S=1 bit-identical to the one-device slam_step on the booted map "
+          f"({int(g.count)} surfels, {len(one.poses)} poses)")
+    print(f"  8(b) ms per step: one device {out['gspmd']['ms_per_step']['1']:.2f}, "
+          f"S=1 {sm['ms_per_step']['1']:.2f}, S=2 {sm['ms_per_step']['2']:.2f} on one "
+          f"card [{smi}]", flush=True)
+    argv = ["-crossover", "-n", "2", "-cap", "22", "-frames", "3", "-device", "cuda:0"]
+    (out, legs), launches_x, _ = counted(lambda _: run_scaling_bench(argv))
+    check_launched("8(b) scaling_bench -crossover", launches_x, FRAME_KERNELS)
+    print("  8(b) scaling_bench " + " ".join(argv) + ": " + json.dumps(out), flush=True)
+    check(CROSSOVER_KEYS <= set(out) and all(CROSSOVER_RESULT_KEYS <= set(r)
+                                             for r in out["results"].values())
+          and set(out["results"]) == {"1", "2"}
+          and out["live"] == int(0.9 * out["capacity"]),
+          "8(b) -crossover's JSON has the reference's keys")
+    for S in (1, 2):
+        check_collectives(f"8(b) -crossover S={S}", out["results"][str(S)]["collectives"],
+                          dict(legs[S].map.group.calls), legs[S].steps)
+    print(f"  8(b) -crossover wall ms per step at {out['live']} live surfels: S=1 "
+          f"{out['results']['1']['wall_ms_per_step']:.2f}, S=2 "
+          f"{out['results']['2']['wall_ms_per_step']:.2f} on one card [{smi}]", flush=True)
+
+
 def phase_profile(cam, frames, steady_ms: float, cfg=None, label="") -> None:
     """torch.profiler over five steady frames: device time by kernel."""
     print(f"== profile: 5 frames{label}", flush=True)
@@ -1778,12 +2081,14 @@ def main() -> None:
     lap("6")
     phase_sharded(cam, frames, gt_poses, entries)
     lap("7")
+    phase_last_modules(cam, frames, gt_poses, run["ms"], entries, smi)
+    lap("8")
     if args.profile:
         phase_profile(cam, frames, run["ms"])
         phase_profile(cam, frames, p5["a"]["ms"], engine_config(cam).with_(closeLoops=True),
                       " with closeLoops")
 
-    print("== 8. kernels", flush=True)
+    print("== 9. kernels", flush=True)
     kernels = []
     for e in entries.values():
         e = dict(e)

@@ -43,9 +43,8 @@ class CameraConfig:
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
-    """Engine knobs.  Flags whose code path the port does not have yet are
-    kept (same names, same defaults) and make the port raise
-    `NotImplementedError` where they would take effect."""
+    """Engine knobs: the reference's names and defaults, every one honoured
+    by the port."""
 
     camera: CameraConfig = dataclasses.field(default_factory=CameraConfig)
 
@@ -69,7 +68,9 @@ class EngineConfig:
     gn_early_exit: float = 3e-4
     # also stop when the per-pixel residual stops changing relatively (0 = off)
     gn_plateau_exit: float = 0.0
-    # u16 fixed-point ICP gather tables (not ported: raises)
+    # u16 fixed-point ICP model tables (ops/gatherpack.pack_fx16; decode
+    # error <= scale/2, ~0.08 mm over a 10 m range); off by default, as in
+    # the reference
     fx16_tables: bool = False
 
     # --- depth preprocessing ---

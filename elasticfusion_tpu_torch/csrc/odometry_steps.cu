@@ -1,7 +1,8 @@
 // The Gauss-Newton steps of frame-to-model tracking, each as ONE launch that
 // builds a pixel's normal-equation row [J | r] in registers and reduces
 // rows * rows^T over the image in the same kernel:
-//   ef_icp_step      point-to-plane projective ICP   (ops/odometry.py icp_step)
+//   ef_icp_step      point-to-plane projective ICP   (ops/odometry.py icp_step),
+//                    on a float32 model table or on the u16 fixed-point one
 //   ef_rgb_residual  photometric correspondence      (compute_rgb_residual)
 //   ef_rgb_step      photometric Jacobian rows       (rgb_step)
 //   ef_so3_step      rotation-only Lucas-Kanade      (so3_step)
@@ -98,21 +99,69 @@ __device__ __forceinline__ void write_normal_equations(
 
 // ---------------------------------------------------------------------------
 // ICP step.  out[44] = A(36) b(6) sum_sq count.
+//
+// The model table comes in the two forms of ops/odometry.py icp_prev_table:
+//   FX16 = false: [6,N] float32 planes, vertex | normal;
+//   FX16 = true:  [3,N] 32-bit words of two u16 codes each (channel 2k in the
+//                 low half of word k, 2k+1 in the high half), decoded
+//                 code * scale[c] + lo[c] with ONE rounding, as the reference's
+//                 compiler fuses it (this file is built with -fmad=false, so
+//                 only the explicit intrinsic gives one rounding).  A decoded
+//                 zero is +-scale/2 of noise: the model pixel is valid by its
+//                 normal alone, |n|^2 > 1e-2, as in the reference.
+// The 12 range floats are read once per block into shared memory.
 // ---------------------------------------------------------------------------
 
+__device__ __forceinline__ float fx16_decode(unsigned int code, float scale,
+                                             float lo) {
+  return __fmaf_rn((float)code, scale, lo);
+}
+
+template <bool FX16>
+__device__ __forceinline__ bool fetch_model(const void* __restrict__ table,
+                                            const float* range, int N,
+                                            int flat, Vec3* vprev,
+                                            Vec3* nprev) {
+  if constexpr (FX16) {
+    const unsigned int* w = static_cast<const unsigned int*>(table);
+    const unsigned int w0 = w[flat], w1 = w[N + flat], w2 = w[2 * N + flat];
+    // range = los[0..6) | scales[0..6)
+    *vprev = Vec3{fx16_decode(w0 & 0xFFFFu, range[6], range[0]),
+                  fx16_decode(w0 >> 16, range[7], range[1]),
+                  fx16_decode(w1 & 0xFFFFu, range[8], range[2])};
+    *nprev = Vec3{fx16_decode(w1 >> 16, range[9], range[3]),
+                  fx16_decode(w2 & 0xFFFFu, range[10], range[4]),
+                  fx16_decode(w2 >> 16, range[11], range[5])};
+    return dot(*nprev, *nprev) > 1e-2f;
+  } else {
+    const float* t = static_cast<const float*>(table);
+    *vprev = Vec3{t[flat], t[N + flat], t[2 * N + flat]};
+    *nprev = Vec3{t[3 * N + flat], t[4 * N + flat], t[5 * N + flat]};
+    return dot(*vprev, *vprev) > 0.0f && dot(*nprev, *nprev) > 1e-12f;
+  }
+}
+
+template <bool FX16>
 __global__ void EF_STEP_BOUNDS icp_step_kernel(
     const float* __restrict__ T_curr,      // [4,4] world <- current camera
     const float* __restrict__ T_prev,      // [4,4] world <- previous camera
     const float* __restrict__ vmap_curr,   // [3,N] camera frame
     const float* __restrict__ nmap_curr,   // [3,N]
-    const float* __restrict__ prev_table,  // [6,N] model vertex | normal, world
+    const void* __restrict__ prev_table,   // model vertex | normal, world
+    const float* __restrict__ los,         // [6] (FX16 only)
+    const float* __restrict__ scales,      // [6] (FX16 only)
     int H, int W, float fx, float fy, float cx, float cy, float dist_thresh,
     float angle_thresh_sin, float* __restrict__ partials, unsigned int* ticket,
     float* __restrict__ out) {
   constexpr int T = 29;
   __shared__ float Tc[12], Tp[12];
+  __shared__ float range[FX16 ? 12 : 1];
   if (threadIdx.x < 12) Tc[threadIdx.x] = T_curr[threadIdx.x];
   else if (threadIdx.x < 24) Tp[threadIdx.x - 12] = T_prev[threadIdx.x - 12];
+  if constexpr (FX16) {
+    if (threadIdx.x >= 32 && threadIdx.x < 38) range[threadIdx.x - 32] = los[threadIdx.x - 32];
+    else if (threadIdx.x >= 38 && threadIdx.x < 44) range[threadIdx.x - 32] = scales[threadIdx.x - 38];
+  }
   __syncthreads();
   const Vec3 tc{Tc[3], Tc[7], Tc[11]}, tp{Tp[3], Tp[7], Tp[11]};
 
@@ -138,11 +187,9 @@ __global__ void EF_STEP_BOUNDS icp_step_kernel(
                           W, H, &flat) || !(z >= 0.0f))
       continue;
 
-    const Vec3 vprev{prev_table[flat], prev_table[N + flat],
-                     prev_table[2 * N + flat]};
-    const Vec3 nprev{prev_table[3 * N + flat], prev_table[4 * N + flat],
-                     prev_table[5 * N + flat]};
-    if (!(dot(vprev, vprev) > 0.0f && dot(nprev, nprev) > 1e-12f)) continue;
+    Vec3 vprev, nprev;
+    if (!fetch_model<FX16>(prev_table, range, N, flat, &vprev, &nprev))
+      continue;
 
     const Vec3 n_g = mat_vec(Tc, 4, n);
     const Vec3 dv = sub(vprev, v_g);
@@ -169,6 +216,24 @@ __global__ void EF_STEP_BOUNDS icp_step_kernel(
   const float* sums = ef_sum_partials<T>(partials);
   write_normal_equations(sums, out, out + 42);
   if (threadIdx.x == 43) out[43] = sums[28];
+}
+
+// The fixed-point table decoded whole, [3,N] words -> [6,N] floats, with the
+// decode of icp_step_kernel<true>: lets a check hold the kernel's decoded
+// values against the plain version's.  Not on any path of the engine.
+__global__ void fx16_decode_kernel(const unsigned int* __restrict__ words,
+                                   const float* __restrict__ los,
+                                   const float* __restrict__ scales, int N,
+                                   float* __restrict__ out) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < N;
+       i += gridDim.x * blockDim.x) {
+#pragma unroll
+    for (int c = 0; c < 6; ++c) {
+      const unsigned int w = words[(c >> 1) * N + i];
+      out[c * N + i] =
+          fx16_decode((c & 1) ? (w >> 16) : (w & 0xFFFFu), scales[c], los[c]);
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -375,16 +440,32 @@ __global__ void EF_STEP_BOUNDS so3_step_kernel(
 // Each returns cudaGetLastError().
 // ---------------------------------------------------------------------------
 
+// los == scales == nullptr: prev_table is the [6,N] float32 table; both
+// given: it is the [3,N] fixed-point words with their [6] ranges.
 extern "C" int ef_icp_step(const float* T_curr, const float* T_prev,
                            const float* vmap_curr, const float* nmap_curr,
-                           const float* prev_table, int H, int W, float fx,
+                           const void* prev_table, const float* los,
+                           const float* scales, int H, int W, float fx,
                            float fy, float cx, float cy, float dist_thresh,
                            float angle_thresh_sin, float* partials,
                            unsigned int* ticket, int n_blocks, float* out,
                            void* stream) {
-  icp_step_kernel<<<n_blocks, EF_RED_THREADS, 0, (cudaStream_t)stream>>>(
-      T_curr, T_prev, vmap_curr, nmap_curr, prev_table, H, W, fx, fy, cx, cy,
-      dist_thresh, angle_thresh_sin, partials, ticket, out);
+  if (los != nullptr)
+    icp_step_kernel<true><<<n_blocks, EF_RED_THREADS, 0, (cudaStream_t)stream>>>(
+        T_curr, T_prev, vmap_curr, nmap_curr, prev_table, los, scales, H, W,
+        fx, fy, cx, cy, dist_thresh, angle_thresh_sin, partials, ticket, out);
+  else
+    icp_step_kernel<false><<<n_blocks, EF_RED_THREADS, 0, (cudaStream_t)stream>>>(
+        T_curr, T_prev, vmap_curr, nmap_curr, prev_table, los, scales, H, W,
+        fx, fy, cx, cy, dist_thresh, angle_thresh_sin, partials, ticket, out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ef_fx16_decode(const unsigned int* words, const float* los,
+                              const float* scales, int N, float* out,
+                              void* stream) {
+  fx16_decode_kernel<<<(N + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
+      words, los, scales, N, out);
   return (int)cudaGetLastError();
 }
 

@@ -35,9 +35,11 @@ a `ShardedMap` held by this one process, or spread over the processes of
 `torch.distributed`); every map operation of the frame, of the closure
 repair, of growth and of export goes through `_map_ops`, and the
 frame state (tracking, predictions, fill-in, ferns, the deformation graph)
-stays replicated on the lead device.  Not ported yet, and raising
-`NotImplementedError` when asked for: the u16 fixed-point tracking tables
-(`fx16_tables`).
+stays replicated on the lead device.
+
+`cfg.fx16_tables` reaches every solve of the tracker (the frame's,
+model-to-model and the fern ICP): each pyramid level's model table is packed
+to u16 fixed point and `icp_step` reads that form.
 """
 
 from __future__ import annotations
@@ -590,11 +592,6 @@ def _host_tensor(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(a if a.flags.writeable else a.copy())
 
 
-def _unported(flag: str, item: str):
-    return NotImplementedError(
-        f"{flag} is not ported to elasticfusion_tpu_torch yet (ROADMAP {item})")
-
-
 class Engine:
     """Dense RGB-D SLAM engine with the ElasticFusion surface (construct,
     process_frame per frame).  Runs on the CUDA card unless `device` names
@@ -606,9 +603,6 @@ class Engine:
 
     def __init__(self, cfg: EngineConfig = EngineConfig(),
                  device: DeviceLike = None):
-        if cfg.fx16_tables:
-            raise _unported("fx16_tables (u16 fixed-point tracking tables)",
-                            "M12 (b)")
         self.cfg = cfg
         self.group = engine_group(cfg, device)
         self.device = self.group.lead if self.group else resolve_device(device)

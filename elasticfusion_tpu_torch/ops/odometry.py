@@ -19,6 +19,12 @@ reaches device memory; on the tracker's path they replace the Pallas kernel
 elementwise chain that fed it.  For CPU tensors they run the plain versions
 `icp_step_plain`, `compute_rgb_residual_plain`, `rgb_step_plain`,
 `so3_step_plain`, which write the rows out and reduce them with `gram_outer`.
+
+`icp_step` takes the model table in either of the reference's two forms
+(`icp_prev_table`): six float32 planes, or with `fx16_tables` the u16
+fixed-point words of `gatherpack.pack_fx16` (three 32-bit words of two codes
+a pixel, each channel decoded `code * scale + lo` with one rounding).  Both
+forms are one kernel, `icp_step_kernel<FX16>`, behind one launcher.
 """
 
 from __future__ import annotations
@@ -31,14 +37,16 @@ import torch
 
 from .._build import check_launch, kernel_function
 from ..surfels import pixel_grid
+from .gatherpack import gather_fx16, pack_fx16
 from .gram import gram_outer, reduction_grid, reduction_scratch
 from .preprocess import SOBEL_SCALE
 
 _PIXELS_PER_THREAD = 1
 _P, _F, _I = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
-# T_curr, T_prev, vmap, nmap, prev_table, H, W, fx, fy, cx, cy, dist, sine,
-# partials, ticket, n_blocks, out, stream
-_ICP_ARGTYPES = (_P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _F,
+# T_curr, T_prev, vmap, nmap, prev_table, los, scales (both null: the float32
+# table), H, W, fx, fy, cx, cy, dist, sine, partials, ticket, n_blocks, out,
+# stream
+_ICP_ARGTYPES = (_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _F,
                  _P, _P, _I, _P, _P)
 # gates, next_depth, next_image, last_table, krkinv, kt, H, W, max_depth_delta,
 # flat0, diff, partials, ticket, n_blocks, stats, stream
@@ -122,9 +130,21 @@ def _round_i(x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def icp_prev_table(vmap_g_prev: torch.Tensor, nmap_g_prev: torch.Tensor) -> torch.Tensor:
-    """The (loop-invariant) model vertex+normal maps as one [6,N] gather table."""
+def icp_prev_table(vmap_g_prev: torch.Tensor, nmap_g_prev: torch.Tensor,
+                   fx16: bool = False):
+    """The (loop-invariant) model vertex+normal maps as one [6,N] float32
+    gather table, or with `fx16` the reference's u16 fixed-point table
+    ("fx16", words [3,N] int32, los [6], scales [6]) of `pack_fx16`: half the
+    bytes a correspondence reads, at most scale/2 of decode error (<= 0.1 mm
+    over a 10 m range)."""
+    if fx16:
+        return pack_fx16((vmap_g_prev[0], vmap_g_prev[1], vmap_g_prev[2],
+                          nmap_g_prev[0], nmap_g_prev[1], nmap_g_prev[2]))
     return torch.cat([vmap_g_prev.reshape(3, -1), nmap_g_prev.reshape(3, -1)])
+
+
+def _is_fx16(table) -> bool:
+    return isinstance(table, tuple) and table[0] == "fx16"
 
 
 def rgb_last_table(last_depth: torch.Tensor, last_image: torch.Tensor,
@@ -175,7 +195,7 @@ def icp_step_plain(
     fx: float, fy: float, cx: float, cy: float,
     dist_thresh: float = 0.10,
     angle_thresh_sin: float = 0.342020143,
-    prev_table: Optional[torch.Tensor] = None,
+    prev_table=None,            # icp_prev_table(...) of the model maps
 ) -> Gram:
     """Point-to-plane ICP rows against the predicted model maps.
 
@@ -183,7 +203,12 @@ def icp_step_plain(
     (reduce.cu:228-309): transform current vertex to world with T_curr,
     re-project into the previous camera, gather the model vertex/normal,
     gate on distance ≤0.10 m and normal-cross-product norm < sin 20°, and
-    emit the row [n | s×n | n·(s−d)] in the *previous camera* frame."""
+    emit the row [n | s×n | n·(s−d)] in the *previous camera* frame.
+
+    A fixed-point table decodes a zero to ±scale/2 of noise, so its model
+    pixel counts as valid by its normal alone, |n|² > 1e-2 (a real surfel
+    normal is unit length), as in the reference; the float32 table takes
+    |v|² > 0 and |n|² > 1e-12."""
     C, H, W = vmap_curr.shape
     N = H * W
     Rc = T_curr[:3, :3]
@@ -207,11 +232,16 @@ def icp_step_plain(
     flat = torch.clamp(v_proj, 0, H - 1) * W + torch.clamp(u_proj, 0, W - 1)
     if prev_table is None:
         prev_table = icp_prev_table(vmap_g_prev, nmap_g_prev)
-    got = prev_table[:, flat]
-    vprev_g, nprev_g = got[0:3], got[3:6]
-    prev_valid = (torch.sum(vprev_g * vprev_g, dim=0) > 0) & (
-        torch.sum(nprev_g * nprev_g, dim=0) > 1e-12
-    )
+    if _is_fx16(prev_table):
+        ch = gather_fx16(prev_table, flat)
+        vprev_g, nprev_g = torch.stack(ch[0:3]), torch.stack(ch[3:6])
+        prev_valid = torch.sum(nprev_g * nprev_g, dim=0) > 1e-2
+    else:
+        got = prev_table[:, flat]
+        vprev_g, nprev_g = got[0:3], got[3:6]
+        prev_valid = (torch.sum(vprev_g * vprev_g, dim=0) > 0) & (
+            torch.sum(nprev_g * nprev_g, dim=0) > 1e-12
+        )
 
     n_g = Rc @ n                          # current normal in world
     dist = torch.linalg.vector_norm(vprev_g - v_g, dim=0)
@@ -240,41 +270,55 @@ def icp_step(
     fx: float, fy: float, cx: float, cy: float,
     dist_thresh: float = 0.10,
     angle_thresh_sin: float = 0.342020143,
-    prev_table: Optional[torch.Tensor] = None,
+    prev_table=None,
     out: Optional[torch.Tensor] = None,
 ) -> Gram:
     """`icp_step_plain` for CPU tensors; for CUDA tensors one launch of
-    `ef_icp_step`.  `out`, when given, is a float32 `[44]` slice that receives
-    A (36, row-major), b (6), Σr², count — the returned Gram then views it."""
+    `ef_icp_step`, of the fixed-point form when `prev_table` is a
+    `pack_fx16` table.  `out`, when given, is a float32 `[44]` slice that
+    receives A (36, row-major), b (6), Σr², count — the returned Gram then
+    views it."""
     if vmap_curr.device.type == "cpu":
         return _store_gram(icp_step_plain(
             T_curr, vmap_curr, nmap_curr, T_prev, vmap_g_prev, nmap_g_prev,
             fx, fy, cx, cy, dist_thresh, angle_thresh_sin, prev_table), out, True)
     if prev_table is None:
         prev_table = icp_prev_table(vmap_g_prev, nmap_g_prev)
+    _, H, W = vmap_curr.shape
+    fx16 = _is_fx16(prev_table)
+    table, los, scales = prev_table[1:] if fx16 else (prev_table, None, None)
     dev = _cuda_device("icp_step", vmap_curr, T_curr=T_curr, T_prev=T_prev,
                        vmap_curr=vmap_curr, nmap_curr=nmap_curr,
-                       prev_table=prev_table)
-    _, H, W = vmap_curr.shape
+                       **({"los": los, "scales": scales} if fx16 else {"prev_table": table}))
+    if fx16 and (table.device != dev or table.dtype != torch.int32
+                 or not table.is_contiguous()):
+        raise ValueError(f"icp_step: the fixed-point words must be a contiguous int32 "
+                         f"tensor on {dev}, got {table.dtype} on {table.device}")
     if (T_curr.shape != (4, 4) or T_prev.shape != (4, 4)
-            or nmap_curr.shape != (3, H, W) or prev_table.shape != (6, H * W)):
-        raise ValueError("icp_step: wants (4,4) poses, (3,H,W) maps and a (6,H*W) table")
+            or nmap_curr.shape != (3, H, W)
+            or table.shape != ((3 if fx16 else 6), H * W)
+            or (fx16 and not los.shape == scales.shape == (6,))):
+        raise ValueError("icp_step: wants (4,4) poses, (3,H,W) maps and a (6,H*W) "
+                         "table, or a fixed-point one of (3,H*W) words and (6,) ranges")
     out = _out_buffer("icp_step", out, 44, dev)
     partials, ticket = reduction_scratch("icp_step", dev, 29)
     fn = kernel_function("odometry_steps", "ef_icp_step", _ICP_ARGTYPES)
     with torch.cuda.device(dev):
         code = fn(T_curr.data_ptr(), T_prev.data_ptr(), vmap_curr.data_ptr(),
-                  nmap_curr.data_ptr(), prev_table.data_ptr(), H, W,
-                  fx, fy, cx, cy, dist_thresh, angle_thresh_sin,
+                  nmap_curr.data_ptr(), table.data_ptr(),
+                  los.data_ptr() if fx16 else None, scales.data_ptr() if fx16 else None,
+                  H, W, fx, fy, cx, cy, dist_thresh, angle_thresh_sin,
                   partials.data_ptr(), ticket.data_ptr(),
                   reduction_grid(H * W, _PIXELS_PER_THREAD), out.data_ptr(),
                   torch.cuda.current_stream().cuda_stream)
     check_launch(code, "icp_step")
     icp_step.launches += 1
+    icp_step.launches_fx16 += fx16
     return Gram(A=out[0:36].view(6, 6), b=out[36:42], sum_sq=out[42], count=out[43])
 
 
 icp_step.launches = 0
+icp_step.launches_fx16 = 0      # of them, launches of the fixed-point form
 
 
 # ---------------------------------------------------------------------------

@@ -35,7 +35,7 @@ is the single-device one, bit for bit.
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -300,6 +300,33 @@ def distribute_map(m: SurfelMap, group: MapGroup) -> ShardedMap:
             **{f: getattr(m, f)[..., idx].to(sdev) for f in _MAP_FIELDS},
             count=counts[s].to(torch.int32).to(sdev)))
     return ShardedMap(tuple(shards), counts.to(torch.int32).to(group.lead), group)
+
+
+def shard_empty_map(capacity: int, group: MapGroup,
+                    first: Optional[SurfelMap] = None) -> ShardedMap:
+    """An empty map of `capacity` surfels in S sub-maps (ref
+    `shard_empty_map`, shard_step.py:650).  With `first`, a one-device map,
+    its live prefix (as much as one shard holds) is booted into shard 0, so
+    the global ids of its surfels are its slot numbers: the start of the
+    reference's `tools/scaling_bench.py` (:221-240) and of its sharded-step
+    test."""
+    from ..surfels import empty_map
+
+    sm = distribute_map(empty_map(capacity, group.lead), group)
+    if first is None or 0 not in group.shard_ids:
+        return sm
+    k = group.shard_ids.index(0)
+    n0 = min(int(first.count), sm.cap_l)
+    s0 = sm.shards[k]
+    dev = s0.pos.device
+    booted = s0._replace(
+        **{f: torch.cat([getattr(first, f)[..., :n0].to(dev),
+                         getattr(s0, f)[..., n0:]], -1) for f in _MAP_FIELDS},
+        count=torch.tensor(n0, dtype=torch.int32, device=dev))
+    counts = sm.counts.clone()
+    counts[0] = n0
+    return sm._replace(shards=sm.shards[:k] + (booted,) + sm.shards[k + 1:],
+                       counts=counts)
 
 
 def gather(sm: ShardedMap) -> SurfelMap:

@@ -26,6 +26,8 @@ import sys
 import time
 from pathlib import Path
 
+from .fetch_datasets import dataset_dir
+
 # (name, run_slam args, dataset name, ICL-NUIM)
 REAL_CONFIGS = [
     # open-loop frame-to-frame fast odometry (`-o -ftf -fo` odometry mode)
@@ -48,21 +50,6 @@ SYNTH_CONFIGS = [
     ("synth_there_back_localclosure", "there_back", 220, True, 80, {}),
     ("synth_orbit_globalclosure", "orbit", 260, True, 80, {}),
 ]
-
-
-def dataset_dir(name: str, root: Path) -> Path | None:
-    """The TUM-format directory (or .klg) of a dataset under `root`, or None
-    (the path helper of the reference's `fetch_datasets.py`)."""
-    dest = root / name
-    if not dest.exists():
-        return None
-    if (dest / "depth.txt").exists():
-        return dest
-    for sub in sorted(dest.iterdir()):
-        if sub.is_dir() and (sub / "depth.txt").exists():
-            return sub
-    klg = list(dest.glob("*.klg"))
-    return klg[0] if klg else None
 
 
 def run_real(root: Path, out_rows: list, device: str) -> None:

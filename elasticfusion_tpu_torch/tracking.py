@@ -179,10 +179,6 @@ def get_incremental_transformation(
     """One full tracking solve.  Mirrors RGBDOdometry.cpp:259-571; see the
     module docstring for where the work runs.  All results are tensors on the
     inputs' device."""
-    if cfg.fx16_tables:
-        raise NotImplementedError(
-            "fx16_tables: the u16 fixed-point gather tables are not ported "
-            "yet (ROADMAP M12 (b))")
     cam = cfg.camera
     dev = inputs.vmaps_curr[0].device
     icp_on = (not cfg.rgb_only) and cfg.icp_weight > 0
@@ -241,9 +237,11 @@ def get_incremental_transformation(
         dIdx, dIdy = derivs[lvl]
         min_grad2 = (cfg.rgb_grad_thresholds[lvl]) / (SOBEL_SCALE * SOBEL_SCALE)
 
-        # loop-invariant gather tables, hoisted out of the GN body
+        # loop-invariant gather tables, hoisted out of the GN body (the model
+        # table in u16 fixed point with `fx16_tables`)
         prev_table = (
-            icp_prev_table(inputs.vmaps_prev_g[lvl], inputs.nmaps_prev_g[lvl])
+            icp_prev_table(inputs.vmaps_prev_g[lvl], inputs.nmaps_prev_g[lvl],
+                           fx16=cfg.fx16_tables)
             if icp_on else None
         )
         last_table = (

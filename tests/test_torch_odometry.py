@@ -286,7 +286,18 @@ def test_tracking_reads_back_once_per_iteration(world, monkeypatch):
     assert max(calls) <= 88          # two packed 44-float normal-equation blocks
 
 
-def test_tracking_raises_for_unported_tables(world):
-    with pytest.raises(NotImplementedError):
-        port_tracking.get_incremental_transformation(
-            world["inputs"], world["port_cfg"].with_(fx16_tables=True))
+def test_tracking_raises_for_unported_tables(world, monkeypatch):
+    """`fx16_tables` once raised here; the tracker now runs on the u16
+    fixed-point model tables, reads back at most once per iteration as on
+    the float32 ones, and lands within 5 mm of the rendered pose
+    (tests/test_torch_fx16_tables.py holds it against the reference)."""
+    calls = []
+    real = port_tracking.read_back
+    monkeypatch.setattr(port_tracking, "read_back",
+                        lambda t: (calls.append(t.numel()), real(t))[1])
+    cfg = world["port_cfg"].with_(fx16_tables=True)
+    got = port_tracking.get_incremental_transformation(world["inputs"], cfg)
+    budget = cfg.so3_iterations + sum(cfg.gn_iterations) + 1
+    assert 4 <= len(calls) <= budget
+    assert max(calls) <= 88
+    assert np.linalg.norm(nn(got.T_curr)[:3, 3] - T_NEXT[:3, 3]) < 5e-3

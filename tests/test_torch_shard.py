@@ -268,16 +268,12 @@ def test_shardmap_step_matches_the_one_device_step(S):
                              cfg.depth_cutoff)
     m1, poses1 = _step_chain(lambda *a: port_engine.slam_step(*a, cfg), m0, cam, frames)
 
-    group = MapGroup(["cpu"] * S)
-    sm = shard_step.distribute_map(empty_map(cfg.max_surfels, "cpu"), group)
+    sm = shard_step.shard_empty_map(cfg.max_surfels, MapGroup(["cpu"] * S), first=m0)
     n0 = int(m0.count)
     assert n0 <= sm.cap_l, "the first frame must fit one shard"
-    first = sm.shards[0]._replace(
-        **{f: torch.cat([getattr(m0, f)[..., :n0], getattr(sm.shards[0], f)[..., n0:]], -1)
-           for f in FIELDS}, count=m0.count.clone())
-    counts = torch.zeros(S, dtype=torch.int32)
-    counts[0] = n0
-    sm = sm._replace(shards=(first,) + sm.shards[1:], counts=counts)
+    assert [int(m.count) for m in sm.shards] == [n0] + [0] * (S - 1)
+    assert sm.counts.tolist() == [n0] + [0] * (S - 1)
+    assert torch.equal(sm.shards[0].pos[:, :n0], m0.pos[:, :n0])
     m8, poses8 = _step_chain(shard_step.make_shardmap_step(cfg), sm, cam, frames)
 
     for a, b in zip(poses1, poses8):

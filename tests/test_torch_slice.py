@@ -162,10 +162,24 @@ def test_engine_grows_the_map_before_it_overflows(frames):
     # mesh_shape is ported now: tests/test_torch_shard.py
     pytest.param(dict(fx16_tables=True), "M12", id="flags1-M12"),
 ])
-def test_unported_flags_raise(flags, item):
-    cfg = PortConfig(**{"closeLoops": False, **flags})
-    with pytest.raises(NotImplementedError, match=item):
-        port_engine.Engine(cfg, device="cpu")
+def test_unported_flags_raise(frames, flags, item):
+    """The flags that once raised (ROADMAP `item`) are ported: the Engine with
+    each runs two frames, its pose within the reference's fx16 on/off bound
+    (0.5 mm / 0.05 deg, tests/test_gatherpack.py) of the Engine without it."""
+    _, port_cam, poses, rendered = frames
+    got = {}
+    for on in (False, True):
+        cfg = PortConfig(**{"camera": port_cam, "closeLoops": False,
+                            **(flags if on else {})})
+        eng = port_engine.Engine(cfg, device="cpu")
+        for i in range(2):
+            d, rgb = rendered[i]
+            res = eng.process_frame(rgb, d, timestamp=i)
+        assert res.tracking_ok and not res.lost and eng.tick == 3
+        got[on] = res.T_wc
+    assert np.linalg.norm(got[True][:3, 3] - got[False][:3, 3]) < 5e-4
+    assert rot_err(got[True], got[False]) < np.deg2rad(0.05)
+    assert np.linalg.norm(got[True][:3, 3] - poses[1][:3, 3]) < 5e-3
 
 
 @pytest.mark.parametrize("flags", [dict(), dict(reloc_mode=True)],
@@ -216,16 +230,27 @@ def test_loop_closure_configs_construct_and_run(frames, flags):
 
 
 def test_unported_entry_points_raise(frames):
+    """The entry points that once raised run: `slam_step` with fx16_clean
+    (the default) and with `fx16_tables` tracks the next frame from the
+    first one's state, its pose within the reference's fx16 on/off bound of
+    the float32 tables' and its map the same size within 1 %."""
     _, port_cam, poses, rendered = frames
     cfg = PortConfig(camera=port_cam, closeLoops=False)
     eng = port_engine.Engine(cfg, device="cpu")
     d, rgb = rendered[0]
     eng.process_frame(rgb, d, in_T_wc=poses[0])
-    # fx16_clean (the default) runs now; the tracking tables do not
-    with pytest.raises(NotImplementedError, match="fx16_tables"):
-        port_engine.slam_step(eng.map, eng._T_f32, eng._so3_hist, *eng._fill,
-                              tt(d.astype(np.float32)), tt(rgb), 2.0, 1.0,
-                              cfg.with_(fx16_tables=True))
+    d1, rgb1 = rendered[1]
+    out = {}
+    for on in (False, True):
+        out[on] = port_engine.slam_step(eng.map, eng._T_f32, eng._so3_hist, *eng._fill,
+                                        tt(d1.astype(np.float32)), tt(rgb1), 2.0, 1.0,
+                                        cfg.with_(fx16_tables=on))
+    (m16, T16), (m32, T32) = out[True][:2], out[False][:2]
+    T16, T32 = nn(T16).astype(np.float64), nn(T32).astype(np.float64)
+    assert np.linalg.norm(T16[:3, 3] - T32[:3, 3]) < 5e-4
+    assert rot_err(T16, T32) < np.deg2rad(0.05)
+    assert np.linalg.norm(T16[:3, 3] - poses[1][:3, 3]) < 5e-3
+    assert abs(int(m16.count) - int(m32.count)) <= 0.01 * int(m32.count)
 
 
 def test_external_poses_after_the_first_frame_run(frames):

@@ -57,7 +57,8 @@ def test_the_scan_covers_io_tools_and_checkpoint():
     rel = {os.path.relpath(p, PKG) for p in _python_sources()}
     assert {"checkpoint.py", "io/klg.py", "io/ply.py", "io/trajectory.py", "io/tum.py",
             "io/groundtruth.py", "tools/run_slam.py", "tools/eval_suite.py",
-            "tools/camera.py", "tools/report.py", "tools/view_map.py"} <= rel
+            "tools/camera.py", "tools/report.py", "tools/view_map.py",
+            "tools/scaling_bench.py", "tools/fetch_datasets.py"} <= rel
 
 
 def test_the_scan_covers_the_parallel_modules():
@@ -195,6 +196,19 @@ def test_wrapper_raises_for_a_tensor_on_neither_cpu_nor_card(function):
     with pytest.raises(ValueError, match="unsupported device"):
         _meta_calls()[function]()
     assert wrapper.launches == before
+
+
+def test_icp_step_on_a_fixed_point_table_raises_for_a_meta_tensor():
+    """The fixed-point model table takes the same route: a tensor neither on
+    the CPU nor on a card raises and launches nothing."""
+    H, W = 4, 6
+    table = ("fx16", _meta(3, H * W, dtype=torch.int32), _meta(6), _meta(6))
+    before = odometry_mod.icp_step.launches
+    with pytest.raises(ValueError, match="unsupported device"):
+        odometry_mod.icp_step(_meta(4, 4), _meta(3, H, W), _meta(3, H, W), _meta(4, 4),
+                              _meta(3, H, W), _meta(3, H, W), 5.0, 5.0, 3.0, 2.0,
+                              prev_table=table)
+    assert odometry_mod.icp_step.launches == before
 
 
 def test_import_builds_nothing_and_starts_no_cuda_context():

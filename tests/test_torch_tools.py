@@ -1,9 +1,10 @@
 """The port's command-line tools on the CPU: `run_slam` end to end on a
 160x120 `.klg` against the same frames through `Engine`, its flags that are
 not ported yet, the live-camera layer (`tests/test_camera.py`), `report`,
-`view_map` on a port-written map, and one shortened `eval_suite`
-configuration.  Everything is written under the test's temporary
-directory."""
+`view_map` on a port-written map, one shortened `eval_suite`
+configuration, and `fetch_datasets` with its download replaced by a local
+copy (no network is touched).  Everything is written under the test's
+temporary directory."""
 
 import json
 
@@ -175,3 +176,100 @@ def test_live_reader_streams():
         assert (f0.depth_mm > 0).mean() > 0.5
     finally:
         rdr.close()
+
+
+# --- fetch_datasets (no network: the download is replaced) -----------------
+
+
+def _fake_download(src):
+    """A stand-in for `urllib.request.urlretrieve` that copies `src`."""
+    import shutil
+
+    def fetch(url, fname):
+        shutil.copyfile(src, fname)
+        return str(fname), None
+    return fetch
+
+
+def test_fetch_datasets_table_is_the_references():
+    from elasticfusion_tpu.tools import fetch_datasets as ref_fetch
+    from elasticfusion_tpu_torch.tools import fetch_datasets
+
+    assert fetch_datasets.DATASETS == ref_fetch.DATASETS
+    assert (fetch_datasets.TUM_BASE, fetch_datasets.ICL_BASE) == (
+        ref_fetch.TUM_BASE, ref_fetch.ICL_BASE)
+    # eval_suite resolves datasets with this module's helper, not a copy
+    assert eval_suite.dataset_dir is fetch_datasets.dataset_dir
+
+
+def test_fetch_on_a_cached_directory_downloads_nothing(tmp_path, capsys, monkeypatch):
+    import urllib.request
+
+    from elasticfusion_tpu_torch.tools import fetch_datasets
+
+    def refuse(*a):
+        raise AssertionError("a cached dataset was downloaded")
+
+    monkeypatch.setattr(urllib.request, "urlretrieve", refuse)
+    (tmp_path / "fr1_desk").mkdir()
+    (tmp_path / "fr1_desk" / "depth.txt").write_text("# depth\n")
+    assert fetch_datasets.fetch("fr1_desk", tmp_path) == tmp_path / "fr1_desk"
+    assert capsys.readouterr().out == f"[cached] fr1_desk -> {tmp_path / 'fr1_desk'}\n"
+    assert fetch_datasets.dataset_dir("fr1_desk", tmp_path) == tmp_path / "fr1_desk"
+    assert fetch_datasets.main(["-dir", str(tmp_path), "fr1_desk"]) == 0
+    assert fetch_datasets.main(["-dir", str(tmp_path), "fr9_nothing"]) == 1
+    assert "unknown dataset fr9_nothing" in capsys.readouterr().out
+
+
+def test_fetch_extracts_a_download_and_finds_the_sequence(tmp_path, capsys, monkeypatch):
+    """A `.tgz` of one TUM sequence, built here, stands in for the download:
+    it is extracted and removed, and `dataset_dir` finds the sequence's
+    directory; a `.klg` download is kept as is and found too."""
+    import tarfile
+    import urllib.request
+
+    from elasticfusion_tpu_torch.tools import fetch_datasets
+
+    seq = tmp_path / "src" / "rgbd_dataset_freiburg2_xyz"
+    seq.mkdir(parents=True)
+    for name in ("depth.txt", "rgb.txt", "groundtruth.txt"):
+        (seq / name).write_text(f"# {name}\n")
+    tgz = tmp_path / "src" / "seq.tgz"
+    with tarfile.open(tgz, "w:gz") as tf:
+        tf.add(seq, arcname=seq.name)
+    root = tmp_path / "datasets"
+    monkeypatch.setattr(urllib.request, "urlretrieve", _fake_download(tgz))
+    dest = fetch_datasets.fetch("fr2_xyz", root)
+    assert dest == root / "fr2_xyz"
+    assert sorted(p.name for p in dest.iterdir()) == [seq.name]      # archive removed
+    assert (dest / seq.name / "depth.txt").read_text() == "# depth.txt\n"
+    assert fetch_datasets.dataset_dir("fr2_xyz", root) == dest / seq.name
+    url = fetch_datasets.DATASETS["fr2_xyz"][0]
+    assert capsys.readouterr().out == f"[fetch] {url}\n[ok] fr2_xyz -> {dest}\n"
+
+    klg = tmp_path / "src" / "log.klg"
+    klg.write_bytes(b"\x00" * 16)
+    monkeypatch.setattr(urllib.request, "urlretrieve", _fake_download(klg))
+    dest = fetch_datasets.fetch("dyson_lab", root)
+    assert fetch_datasets.dataset_dir("dyson_lab", root) == dest / "dyson_lab.klg"
+    assert fetch_datasets.dataset_dir("lr_kt0", root) is None
+
+
+def test_a_failed_download_ends_in_the_references_message(tmp_path, monkeypatch):
+    import urllib.request
+
+    from elasticfusion_tpu.tools import fetch_datasets as ref_fetch
+    from elasticfusion_tpu_torch.tools import fetch_datasets
+
+    def fail(url, fname):
+        raise OSError("no route to host")
+
+    monkeypatch.setattr(urllib.request, "urlretrieve", fail)
+    said = []
+    for mod, root in ((fetch_datasets, tmp_path / "port"), (ref_fetch, tmp_path / "ref")):
+        with pytest.raises(SystemExit) as e:
+            mod.fetch("lr_kt1", root)
+        said.append(str(e.value))
+    assert said[0] == said[1]
+    assert said[0].startswith("download failed for lr_kt1: no route to host\n"
+                              "No network egress?")
