@@ -13,21 +13,26 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
   3. every kernel against its plain PyTorch version on the card, at the shapes
      the main path gives it, then its time, the plain version's time, the
      time of the one library call that computes the same (where there is one)
-     and its bound from bytes and operations.  The seven kernels:
+     and its bound from bytes and operations.  The nine kernels:
      `gram_outer` (off the main path since the SO(3) step is fused; held at
      the two shapes it had), the fused tracking steps `icp_step`,
      `rgb_residual`, `rgb_step` (at all three pyramid levels, on the tensors
-     of a tracked frame) and `so3_step` (160x120), `splat_resolve`, and
-     `fuse_window` (bit-identical to its plain version on the frame, on a
-     crop read in place and on a contiguous crop of odd width); and
+     of a tracked frame) and `so3_step` (160x120), the tracker updates
+     `so3_update` and `gn_update` (every stage, bit-identical), `splat_resolve`,
+     and `fuse_window` (bit-identical to its plain version on the frame, on a
+     crop read in place and on a contiguous crop of odd width); the four
+     steps with their `active` flag 0 (nothing written, tickets at 0); and
      `icp_step` on the u16 fixed-point model table (`fx16_tables`) at the
      three levels of a frame tracked with it, its decoded values against the
      plain version's;
   4. the main path: `Engine.process_frame` over 6 warm-up + 30 frames of the
-     640x480 synthetic sweep, twice; launch counts (every kernel of the path
-     launched, `gram_outer` not at all), pose error against the known poses,
-     surfel count, coverage, bit-identical repeat, ms/frame, host syncs per
-     frame, peak memory;
+     640x480 synthetic sweep (replayed as CUDA graphs), twice, the first
+     under torch.profiler: every kernel's launches on the card counted by
+     name in that trace (every kernel of the path launched, `gram_outer` not
+     at all, the tracker's fixed sequence on every tracked frame) and the
+     wrappers' own calls (eager and captured frames), pose error against the
+     known poses, surfel count, coverage, bit-identical repeat, ms/frame of
+     the second run, one host read a frame, peak memory;
   5. the loop-closure path at 640x480, each run read with the counts set to 0
      just before it: (a) the same sweep with `closeLoops=True` (the steady
      per-frame cost of the default configuration), twice; (b) a there-and-back
@@ -35,18 +40,23 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      twice, with the host time and reads of every closure; (c) fern
      retrieval with the fern-resolution ICP; (d) relocalization after a
      blackout; and the tracking steps held against their plain versions on
-     the arguments of the model-to-model solve (three levels) and of the fern
-     ICP (80x60), with the launches and reads of each caller;
+     the arguments of the model-to-model solve (three levels; recorded in a
+     repeat of (b) whose every frame also runs as `_frame_main` called
+     eagerly on a copy of its state and inputs, its finish vector held
+     bit-identical to the replay's) and of the fern ICP (80x60), with the
+     launches and reads of each caller;
   6. the pipelined engine and the slice's entry points at 640x480, each run
      read with the counts set to 0 just before it: (a) `bench.py`'s
      configuration (`closeLoops`, `pipeline_depth=2`) on the sweep, twice,
-     bit-identical to phase 5 (a) at depth 0, with ms/frame, host reads and
-     device kernels per frame beside depth 0's; (b) the there-and-back run at
+     bit-identical to phase 5 (a) at depth 0, with ms/frame, host reads,
+     device kernels and ms, the host's launch calls and the idle share a
+     frame, and the tracker's launches in a profiled window of 5 frames;
+     (b) the there-and-back run at
      depth 2 against phase 5 (b) (the reference's pipeline-test bounds),
      twice; (c) `run_slam` on a `.klg` of the sweep, its trajectory equal to
      `Engine.process_frame`'s, then `report`; (d) a checkpoint after frame
      12 of (b), restored on the card (state exact, one more `splat_resolve`
-     for the regenerated prediction, tracks on); (e) external poses; (f)
+     on the card, in a trace, for the regenerated prediction, tracks on); (e) external poses; (f)
      one configuration of `eval_suite -quick -synth-only`, into a temporary
      directory;
   7. the slice of the sharded map and multi-process runs at 640x480, each
@@ -68,10 +78,19 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      (`-n 2 -cap 20 -frames 5` and `-crossover -n 2 -cap 22 -frames 3`, both
      sub-maps on this card): the reference's keys, the collectives of the
      group's calls, one sub-map bit-identical to the one-device step;
-  9. one JSON line `{"kernels": [...]}` (entries with `caller` are the
+  9. the device-resident frame: over phase 4's sweep and over 6 (a)'s
+     configuration at depth 2, every replayed frame held bit-identical to
+     `_frame_main` called eagerly on a copy of the same state and inputs,
+     one host read a frame, the replays, the wrapper launches each capture
+     recorded and the capture time of every static key;
+ 10. one JSON line `{"kernels": [...]}` (entries with `caller` are the
      model-to-model and fern-ICP runs of the tracking steps, the sharded
-     callers of K2 / K3 and the fixed-point `icp_step`);
- 10. last line `{"ok": true, "device": {...}}`.
+     callers of K2 / K3 and the fixed-point `icp_step`).  `launches`: the
+     card's launches in phase 4's trace; of a caller, the wrapper calls of
+     its eager runs (the model-to-model solve: 5 (b)'s eager copies; the
+     fern ICP, the sharded callers: eager) or, for the fixed-point
+     `icp_step`, the launches in 8 (a)'s trace;
+ 11. last line `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -95,6 +114,7 @@ if not torch.cuda.is_available():
 
 from elasticfusion_tpu_torch import _build, _device  # noqa: E402
 from elasticfusion_tpu_torch import engine as engine_mod  # noqa: E402
+from elasticfusion_tpu_torch import graphs as graphs_mod  # noqa: E402
 from elasticfusion_tpu_torch import ferns as ferns_mod  # noqa: E402
 from elasticfusion_tpu_torch import tracking as tracking_mod  # noqa: E402
 from elasticfusion_tpu_torch.config import CameraConfig, EngineConfig  # noqa: E402
@@ -116,12 +136,16 @@ from elasticfusion_tpu_torch.ops.preprocess import (  # noqa: E402
 from elasticfusion_tpu_torch.ops.odometry import (  # noqa: E402
     compute_rgb_residual,
     compute_rgb_residual_plain,
+    gn_update,
+    gn_update_plain,
     icp_step,
     icp_step_plain,
     rgb_step,
     rgb_step_plain,
     so3_step,
     so3_step_plain,
+    so3_update,
+    so3_update_plain,
 )
 from elasticfusion_tpu_torch.ops.splat_resolve import (  # noqa: E402
     splat_resolve,
@@ -261,31 +285,70 @@ def engine_config(cam: CameraConfig) -> EngineConfig:
 # own tracking, the model-to-model solve or the fern-resolution ICP
 CALLER = ["frame"]
 STEP_WRAPPERS = {"so3_step": so3_step, "icp_step": icp_step,
-                 "compute_rgb_residual": compute_rgb_residual, "rgb_step": rgb_step}
-# the image height of a step's level, from its arguments
+                 "compute_rgb_residual": compute_rgb_residual, "rgb_step": rgb_step,
+                 "so3_update": so3_update, "gn_update": gn_update}
+# the image height of a step's level, from its arguments (the updates: their
+# stage)
 STEP_LEVEL = {"so3_step": lambda a: a[1].shape[0], "icp_step": lambda a: a[1].shape[1],
               "compute_rgb_residual": lambda a: a[1].shape[0],
-              "rgb_step": lambda a: a[2].shape[1]}
+              "rgb_step": lambda a: a[2].shape[1],
+              "so3_update": lambda a: a[0], "gn_update": lambda a: a[0]}
 STEP_NAME = {"compute_rgb_residual": "rgb_residual"}
 
 
+def _snapshot(x):
+    """A copy of a call's tensor arguments as they are at the call (in
+    stream order), leaving everything else as it is."""
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, tuple) and not hasattr(x, "_fields"):
+        return tuple(_snapshot(v) for v in x)
+    if hasattr(x, "_fields") and any(isinstance(v, torch.Tensor) for v in x):
+        return type(x)(*(_snapshot(v) for v in x))
+    return x
+
+
+# where a step's inlier count lands, from its arguments and keyword arguments
+STEP_COUNT = {"icp_step": lambda a, k: k["out"][43],
+              "compute_rgb_residual": lambda a, k: k["out"][1],
+              "rgb_step": lambda a, k: a[0].count, "so3_step": lambda a, k: k["out"][13]}
+
+
 class StepRecorder:
-    """Keep the arguments of the last call of every tracking step, keyed by
-    (kernel, caller, level height), and of K2 / K3 by name, while the
-    wrapped calls go on to the real wrappers."""
+    """Keep a copy of the arguments of eager calls of every tracking step
+    and update, keyed by (kernel, caller, level height or stage), and of K2
+    / K3 by name, while the wrapped calls go on to the real wrappers.  Of a
+    step, the call with the most inliers is kept (the richest input of the
+    run, read after the call with a sync, outside the path's counts); of an
+    update, the last call that ran (`active` set); of K2 / K3 the last call.
+    A call inside a graph capture is not kept (its tensors hold nothing
+    yet), nor one whose `active` flag is 0.  `active` and `out` are dropped
+    (the checks run the steps active, into fresh outputs)."""
 
     def __init__(self, captured: dict):
         self.captured = captured
+        self.best = {}
 
     def _wrap(self, name, fn, level_of=None):
         def wrapper(*args, **kwargs):
-            kept = {k: v for k, v in kwargs.items() if k != "out"}
+            update = name in ("so3_update", "gn_update")
+            active = args[3] if update and args[0] == 1 else kwargs.get("active")
+            if torch.cuda.is_current_stream_capturing() or (
+                    active is not None and int(active) == 0):
+                return fn(*args, **kwargs)
+            kept = {k: _snapshot(v) for k, v in kwargs.items()
+                    if k not in ("out", "active")}
+            snap = _snapshot(args)
+            out = fn(*args, **kwargs)
             if level_of is None:
-                self.captured[name] = args
-            else:
-                self.captured[(STEP_NAME.get(name, name), CALLER[-1],
-                               level_of(args))] = (args, kept)
-            return fn(*args, **kwargs)
+                self.captured[name] = snap
+                return out
+            key = (STEP_NAME.get(name, name), CALLER[-1], level_of(args))
+            count = float(STEP_COUNT[name](args, kwargs)) if name in STEP_COUNT else 0.0
+            if count >= self.best.get(key, 0.0):
+                self.best[key] = count
+                self.captured[key] = (snap, kept)
+            return out
         return wrapper
 
     def __enter__(self):
@@ -303,26 +366,34 @@ class StepRecorder:
 
 
 class CallerCounts:
-    """Count, per caller of the tracker (model-to-model, fern ICP), its runs,
-    its tracker reads and the launches of every kernel made inside it."""
+    """Count, per caller of the tracker (model-to-model, fern ICP), its eager
+    runs, the host reads made inside them and the launches of every kernel
+    made inside them.  A run inside a graph capture is not counted (it
+    records the launches its replays make, which call no Python: a trace
+    counts those)."""
 
-    def __init__(self, tracker_reads: list):
-        self.tracker_reads = tracker_reads
+    def __init__(self):
         self.runs = {"m2m": 0, "fern_icp": 0}
         self.reads = {"m2m": 0, "fern_icp": 0}
         self.launches = {c: {k: 0 for k in WRAPPERS} for c in self.runs}
 
     def _wrap(self, caller, fn):
         def wrapper(*args, **kwargs):
+            if torch.cuda.is_current_stream_capturing():
+                CALLER.append(caller)
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    CALLER.pop()
             before = {k: w.launches for k, w in WRAPPERS.items()}
-            r0 = len(self.tracker_reads)
+            r0 = _device.host_reads
             CALLER.append(caller)
             try:
                 return fn(*args, **kwargs)
             finally:
                 CALLER.pop()
                 self.runs[caller] += 1
-                self.reads[caller] += len(self.tracker_reads) - r0
+                self.reads[caller] += _device.host_reads - r0
                 for k, w in WRAPPERS.items():
                     self.launches[caller][k] += w.launches - before[k]
         return wrapper
@@ -337,20 +408,22 @@ class CallerCounts:
         engine_mod._model_to_model = self._m2m
         ferns_mod.Ferns._fern_icp = self._icp
 
-    def check_identity(self, what: str) -> None:
-        """Every model-to-model run is one pose read plus its Gauss-Newton
-        iterations, each of which launched icp_step, rgb_residual and
-        rgb_step once; a fern ICP the same with icp_step only; neither runs
-        SO(3)."""
-        for caller, rgb in (("m2m", True), ("fern_icp", False)):
+    def check_identity(self, what: str, cfg: EngineConfig) -> None:
+        """Every eager model-to-model run is its whole Gauss-Newton budget of
+        predicated launches (icp_step, rgb_residual, rgb_step each
+        sum(gn_iterations) times, gn_update two more) and no read; a fern ICP
+        the same with icp_step only, over its one level's budget, and one
+        read (its pose and error, in ferns.py); neither runs SO(3)."""
+        for caller, rgb, gn, reads in (("m2m", True, sum(cfg.gn_iterations), 0),
+                                       ("fern_icp", False, cfg.gn_iterations[0], 1)):
             n, L = self.runs[caller], self.launches[caller]
-            gn = L["icp_step"]
             if n == 0:
                 continue
-            check(L["so3_step"] == 0 and self.reads[caller] == n + gn
-                  and L["rgb_residual"] == L["rgb_step"] == (gn if rgb else 0),
-                  f"{what}: {n} {caller} runs, {self.reads[caller]} tracker reads = "
-                  f"{n} poses + {gn} Gauss-Newton iterations, launches {L}")
+            check(L["so3_step"] == L["so3_update"] == 0 and self.reads[caller] == reads * n
+                  and L["icp_step"] == gn * n and L["gn_update"] == (gn + 2) * n
+                  and L["rgb_residual"] == L["rgb_step"] == (gn * n if rgb else 0),
+                  f"{what}: {n} eager {caller} runs, {self.reads[caller]} host reads, "
+                  f"{gn} predicated Gauss-Newton iterations each, launches {L}")
 
 
 def capture_kernel_inputs(cam, frames, cfg=None):
@@ -530,6 +603,8 @@ def phase_tracking_kernels(cam, cap_in, entries):
     for (name, _), e in step_entries("frame", by_level,
                                      f"{cam.width}x{cam.height}").items():
         entries[name] = e
+    check_updates(cap_in, entries)
+    check_inactive_steps(cap_in, cam)
 
     # --- SO(3) step on the arguments of the last pre-alignment iteration ---
     # tolerance: Gram blocks as above, at most 3 net count flips of 19200 (a
@@ -557,6 +632,93 @@ def phase_tracking_kernels(cam, cap_in, entries):
         ms=time_ms(lambda: so3_step(*a, **kw), queue_first=True),
         plain_ms=time_ms(lambda: so3_step_plain(*a, **kw), reps=5, warm=1),
         library_ms=None)
+
+
+def check_updates(cap_in, entries):
+    """so3_update and gn_update (csrc/tracker_update.cu) against their plain
+    versions on the card, on copies of the carries the main path handed
+    them (every stage; a stage-1 update where it ran), bit-identical: the
+    kernel repeats the plain version's operations in their order, each
+    rounded on its own.  Times: (restore the carry + update) less (restore)
+    over 30 launches; bound from the bytes read and written and ~1-2k float
+    operations, far below one launch's latency."""
+    F32 = 4
+    # bytes of a stage-1 update: the pack and the rest of its inputs read once,
+    # the carry and `active` read and written (so3_update: the 14-float
+    # so3_step pack; gn_update: the 88-float step pack, T_prev, the SO(3)
+    # rotation and `enable`)
+    for name, fn, plain, moved, stages, ops in (
+            ("so3_update", so3_update, so3_update_plain, (14 + 2 * 49 + 2) * F32, (0, 1),
+             400.0),
+            ("gn_update", gn_update, gn_update_plain,
+             (88 + 2 * 110 + 16 + 9 + 1 + 2) * F32, (0, 1, 2), 2000.0)):
+        err = 0.0
+        for stage in stages:
+            key = (name, "frame", stage)
+            check(key in cap_in, f"the main path ran {name} stage {stage}")
+            a, kw = cap_in[key]
+            ck, ak = a[2].clone(), a[3].clone()
+            cp, ap = a[2].clone(), a[3].clone()
+            fn(*a[:2], ck, ak, *a[4:], **kw)
+            plain(*a[:2], cp, ap, *a[4:], **kw)
+            torch.cuda.synchronize()
+            same = torch.equal(ck.view(torch.int32), cp.view(torch.int32)) and torch.equal(ak, ap)
+            # a stage writes part of the carry; the rest is the copies' same
+            # (uninitialised) bits, whose difference may be NaN
+            e = float((ck - cp).nan_to_num().abs().max())
+            err = max(err, e)
+            check(same, f"{name} stage {stage} bit-identical to its plain version "
+                  f"(active {int(a[3])} -> {int(ak)}, max |err| {e:.3e})")
+        a, kw = cap_in[(name, "frame", 1)]
+        c, act = a[2].clone(), a[3].clone()
+
+        def restore():
+            c.copy_(a[2])
+            act.copy_(a[3])
+        t_both = time_ms(lambda: (restore(), fn(*a[:2], c, act, *a[4:], **kw)), queue_first=True)
+        t_restore = time_ms(restore, queue_first=True)
+        b_ms, b_by = bound(moved, ops)
+        entries[name] = dict(
+            name=name, route="cuda", source="elasticfusion_tpu_torch/csrc/tracker_update.cu",
+            replaces=("elasticfusion_tpu/tracking.py:116 (the SO(3) lax.while_loop body; "
+                      "no Pallas site, port-only)" if name == "so3_update" else
+                      "elasticfusion_tpu/tracking.py:248 (the Gauss-Newton lax.while_loop "
+                      "body; no Pallas site, port-only)"),
+            max_abs_err=err, ms=max(t_both - t_restore, 0.0), plain_ms=time_ms(
+                lambda: (restore(), plain(*a[:2], c, act, *a[4:], **kw)), reps=5, warm=1),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None, bytes=moved)
+
+
+def check_inactive_steps(cap_in, cam):
+    """The four steps with `active` 0 on the card: every output left as it
+    was (NaN), the reduction tickets still 0; then the time of such a
+    launch, the floor every predicated no-op iteration costs."""
+    from elasticfusion_tpu_torch.ops.gram import reduction_scratch
+
+    off = torch.zeros((1,), dtype=torch.int32, device=DEV)
+    H, W = cam.height, cam.width
+    a, kw = cap_in[("icp_step", "frame", H)]
+    ra, rkw = cap_in[("rgb_residual", "frame", H)]
+    sa, skw = cap_in[("rgb_step", "frame", H)]
+    oa, okw = cap_in[("so3_step", "frame", H >> 2)]
+    outs = {n: torch.full((k,), float("nan"), device=DEV)
+            for n, k in (("icp", 44), ("res", 2), ("rgb", 42), ("so3", 14))}
+    corres = compute_rgb_residual(*ra, **rkw)          # an active record for rgb_step
+    torch.cuda.synchronize()
+    icp_step(*a, **kw, out=outs["icp"], active=off)
+    compute_rgb_residual(*ra, **rkw, out=outs["res"], active=off)
+    rgb_step(corres, None, *sa[2:], out=outs["rgb"], active=off)
+    so3_step(*oa, **okw, out=outs["so3"], active=off)
+    torch.cuda.synchronize()
+    tickets = {n: int(reduction_scratch(n, DEV, t)[1].item()) for n, t in
+               (("icp_step", 29), ("rgb_residual", 2), ("rgb_step", 28), ("so3_step", 11))}
+    check(all(bool(torch.isnan(o).all()) for o in outs.values())
+          and all(v == 0 for v in tickets.values()),
+          f"the four steps with active 0 wrote nothing (outputs still NaN) and left their "
+          f"reduction tickets at {tickets}")
+    ms = time_ms(lambda: icp_step(*a, **kw, out=outs["icp"], active=off), queue_first=True)
+    print(f"inactive_step_ms {ms:.4f} (an icp_step launch with active 0 at {W}x{H}: the "
+          f"floor of a predicated no-op iteration's launch)", flush=True)
 
 
 _FX16_DECODE_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
@@ -796,17 +958,55 @@ def phase_kernels(cam, frames, ptxas):
 
 WRAPPERS = {"gram_outer": gram_outer, "icp_step": icp_step,
             "rgb_residual": compute_rgb_residual, "rgb_step": rgb_step,
-            "so3_step": so3_step, "splat_resolve": splat_resolve,
-            "fuse_window": fuse_window}
+            "so3_step": so3_step, "so3_update": so3_update, "gn_update": gn_update,
+            "splat_resolve": splat_resolve, "fuse_window": fuse_window}
 # kernels that the main path no longer runs (their caller was fused)
 OFF_THE_PATH = {"gram_outer"}
 # the launches of icp_step's fixed-point form, counted apart (`fx16_tables`)
 ICP_FX16 = "icp_step fx16"
+# every wrapper's kernel function, as a profiler trace names it: a replayed
+# CUDA graph calls no wrapper, so the launches its replays make on the card
+# are counted by name in a trace of the run
+KERNEL_SYMBOLS = {"gram_outer": "gram_kernel", "icp_step": "icp_step_kernel",
+                  "rgb_residual": "rgb_residual_kernel", "rgb_step": "rgb_step_kernel",
+                  "so3_step": "so3_step_kernel", "so3_update": "so3_update_kernel",
+                  "gn_update": "gn_update_kernel", "splat_resolve": "splat_resolve_kernel",
+                  "fuse_window": "fuse_window_kernel"}
+
+
+def _names_kernel(trace_name: str, symbol: str) -> bool:
+    """Whether a trace's kernel name (demangled, or mangled with the symbol's
+    length before it) is that of the kernel function `symbol`."""
+    return bool(re.search(rf"(?<![A-Za-z0-9_]){symbol}(?![A-Za-z0-9_])", trace_name)
+                or f"{len(symbol)}{symbol}" in trace_name)
+
+
+def trace_launches(prof) -> tuple:
+    """The launches on the card in a profiler trace: of every wrapper's
+    kernel, by wrapper name (ICP_FX16: icp_step's fixed-point instance), and
+    of all kernels."""
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+
+    # the trace's own events: building the profiler's event tree for a run of
+    # 200k kernels takes half a minute
+    names = Counter(e.name() for e in prof.profiler.kineto_results.events()
+                    if e.device_type() == DeviceType.CUDA)
+    by_name = dict.fromkeys([*WRAPPERS, ICP_FX16], 0)
+    for name, n in names.items():
+        for k, sym in KERNEL_SYMBOLS.items():
+            if _names_kernel(name, sym):
+                by_name[k] += n
+                if k == "icp_step" and ("<true>" in name or "ILb1E" in name):
+                    by_name[ICP_FX16] += n
+    return by_name, sum(names.values())
 
 
 def run_sweep(cam, frames, cfg=None):
     """The main path once: returns per-frame poses and counts, ms/frame of
-    the timed frames, host reads per timed frame and the dense coverage."""
+    the timed frames, host reads per frame finished in the timed window
+    (beside kept keyframes' views) and the dense coverage."""
     eng = Engine(cfg or engine_config(cam), device=DEV)
     poses, counts = [], []
     for i in range(N_WARM):
@@ -816,6 +1016,8 @@ def run_sweep(cam, frames, cfg=None):
         counts.append(res.surfel_count)
     torch.cuda.synchronize()
     reads0 = _device.host_reads
+    kf0 = len(eng.ferns.frames) if eng.ferns else 0
+    finished = N_BENCH + len(eng._inflight)   # the frames the window finishes
     t0 = time.perf_counter()
     timed = []
     for i in range(N_WARM, N_WARM + N_BENCH):
@@ -824,7 +1026,10 @@ def run_sweep(cam, frames, cfg=None):
     eng.flush()                   # frames still in flight finish in the window
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) / N_BENCH * 1e3
-    reads = (_device.host_reads - reads0) / N_BENCH
+    # host reads per finished frame; a kept fern keyframe reads its
+    # decimated views: one read more
+    keyframes = (len(eng.ferns.frames) if eng.ferns else 0) - kf0
+    reads = (_device.host_reads - reads0 - keyframes) / finished
     for res in timed:
         poses.append(res.T_wc)
         counts.append(res.surfel_count)
@@ -834,23 +1039,33 @@ def run_sweep(cam, frames, cfg=None):
 
 
 def counted(fn):
-    """`fn(tracker_reads)` with every kernel's count set to 0 just before it
-    and read just after it, the tracker's reads listed while it runs.
-    Returns (fn's result, launches by kernel, tracker reads)."""
-    tracker_reads = []
-    real_read_back = tracking_mod.read_back
-    tracking_mod.read_back = lambda t: (tracker_reads.append(t.numel()),
-                                        real_read_back(t))[1]
+    """`fn(None)` with every kernel's count set to 0 just before it and read
+    just after it.  Returns (fn's result, launch calls by kernel, host reads
+    made in it).  A wrapper counts its eager launches and those a graph
+    capture records; a replay calls no wrapper (`traced` counts it)."""
     for w in WRAPPERS.values():
         w.launches = 0
     icp_step.launches_fx16 = 0
-    try:
-        out = fn(tracker_reads)
-    finally:
-        tracking_mod.read_back = real_read_back
+    reads0 = _device.host_reads
+    out = fn(None)
     launches = {k: w.launches for k, w in WRAPPERS.items()}
     launches[ICP_FX16] = icp_step.launches_fx16
-    return out, launches, tracker_reads
+    return out, launches, _device.host_reads - reads0
+
+
+def traced(fn):
+    """`counted(fn)` under torch.profiler (the card's activity only).
+    Returns (fn's result, launch calls by kernel, host reads, launches on the
+    card by kernel, counted by name in the run's trace: replays included,
+    a capture's recorded launches not)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out, calls, reads = counted(fn)
+        torch.cuda.synchronize()
+    device, total = trace_launches(prof)
+    check(total > 0, f"the trace holds {total} kernel launches")
+    return out, calls, reads, device
 
 
 def check_launched(what, launches, on_path, per=None):
@@ -863,19 +1078,24 @@ def check_launched(what, launches, on_path, per=None):
             check(n == 0, f"{what}: {k} launched {n} times (off this path)")
 
 
-def check_frame_reads(what, launches, tracker_reads, tracked, m2m_gn=0, m2m_runs=0):
-    """One tracker read per iteration and nothing else: every Gauss-Newton
-    iteration is its three launches and one read, every SO(3) iteration one
-    so3_step and one read, every tracked frame (and model-to-model run) one
-    read of the previous pose."""
-    gn = launches["icp_step"]
-    check(launches["rgb_residual"] == gn and launches["rgb_step"] == gn
-          and len(tracker_reads) == tracked + m2m_runs + launches["so3_step"] + gn,
-          f"{what}: tracker reads {len(tracker_reads)} = {tracked} poses + "
-          f"{m2m_runs} model-to-model poses + {launches['so3_step']} SO(3) iterations "
-          f"(one so3_step each) + {gn} Gauss-Newton iterations ({m2m_gn} of them "
-          f"model-to-model), each of which launched icp_step, rgb_residual and "
-          f"rgb_step once")
+def check_frame_launches(what, launches, cfg, tracked, solves=1):
+    """The tracker's fixed launch sequence, and nothing read in it
+    (tracking.py holds no read): each of `tracked` frames runs the SO(3)
+    budget (so3_step so3_iterations times, so3_update once more) and
+    `solves` Gauss-Newton solves of the whole budget (icp_step, rgb_residual
+    and rgb_step sum(gn_iterations) times each, gn_update two more): the
+    frame's own and, on a one-device map with closeLoops, the predicated
+    model-to-model solve.  `launches` are a trace's launches on the card
+    over every tracked frame, or the wrappers' calls over the frames whose
+    Python ran (`FrameRunner.frames_run`: eager and captured)."""
+    gn, so3 = sum(cfg.gn_iterations), cfg.so3_iterations
+    want = dict(so3_step=so3 * tracked, so3_update=(so3 + 1) * tracked,
+                icp_step=gn * tracked * solves, rgb_residual=gn * tracked * solves,
+                rgb_step=gn * tracked * solves, gn_update=(gn + 2) * tracked * solves)
+    got = {k: launches[k] for k in want}
+    check(got == want and not hasattr(tracking_mod, "read_back"),
+          f"{what}: {tracked} tracked frames x {solves} solve(s) launched {got} "
+          f"(want {want}); tracking.py has no read_back")
 
 
 def pose_error(T_est, T_gt):
@@ -907,11 +1127,20 @@ def phase_main_path(cam, frames, gt_poses):
     global _BLOCKER
     _BLOCKER = None          # phase 3's scratch must not count as the path's memory
     torch.cuda.reset_peak_memory_stats()
-    run, launches, tracker_reads = counted(lambda _: run_sweep(cam, frames))
+    run, calls, _, launches = traced(lambda _: run_sweep(cam, frames))
     peak = torch.cuda.max_memory_allocated()
     tracked = N_WARM + N_BENCH - 1
-    check_launched("main path", launches, FRAME_KERNELS, per=tracked)
-    check_frame_reads("main path", launches, tracker_reads, tracked)
+    cfg = engine_config(cam)
+    check_launched("main path (launches on the card, trace)", launches, FRAME_KERNELS,
+                   per=tracked)
+    check_frame_launches("main path (launches on the card, trace)", launches, cfg, tracked)
+    runner = run["engine"].runner
+    check_launched("main path (wrapper calls)", calls, FRAME_KERNELS)
+    check_frame_launches(f"main path (wrapper calls: {runner.frames_run} frames eager or "
+                         f"captured, {sum(runner.replays_of.values())} replayed)",
+                         calls, cfg, runner.frames_run)
+    check(run["reads"] == 1.0, f"main path: {run['reads']:.2f} host reads a frame (1: its "
+          f"finish vector)")
 
     poses = check_sweep("main path", run, gt_poses)
     count = run["counts"][-1]
@@ -924,10 +1153,11 @@ def phase_main_path(cam, frames, gt_poses):
           and run["counts"] == again["counts"],
           "a second identical run gives bit-identical poses and counts")
 
-    print(f"ms_per_frame {run['ms']:.2f} (second run {again['ms']:.2f})", flush=True)
-    print(f"host_syncs_per_frame {run['reads']:.1f}", flush=True)
+    print(f"ms_per_frame {again['ms']:.2f} (the first run, traced: {run['ms']:.2f})",
+          flush=True)
+    print(f"host_syncs_per_frame {run['reads']:.2f}", flush=True)
     print(f"peak_memory_bytes {peak}", flush=True)
-    return launches, run
+    return launches, dict(run, ms=again["ms"])
 
 
 # --- the loop-closure path ---------------------------------------------------
@@ -973,11 +1203,16 @@ def max_cov(A) -> float:
         return float("inf")
 
 
-def run_closures(cam, frames, cfg):
+def run_closures(cam, frames, cfg, copies=None):
     """(b) once: per-frame poses and counts, the engine, for every accepted
     closure the host time of its frame's closure work (decision, deformation
     solve, repair, synchronised) and its host reads, and for every frame with
-    an inactive prediction the model-to-model values its gates compare."""
+    an inactive prediction the model-to-model values its gates compare.
+    With `copies` (a dict with a `StepRecorder` "recorder", a `CallerCounts`
+    "counts" and a list "differing") every tracked frame is also run as
+    `_frame_main` called eagerly, inside those two, on a copy of the state
+    and inputs the engine's frame got; the frames whose finish vector differs
+    from the engine's are listed."""
     eng = Engine(cfg, device=DEV)
     closures, gates = [], []
     real = Engine._close_loops
@@ -999,9 +1234,16 @@ def run_closures(cam, frames, cfg):
     poses, counts = [], []
     try:
         for i, (d, r) in enumerate(frames):
+            snap = _frame_snapshot(eng) if copies is not None and i > 0 else None
             res = eng.process_frame(r, d, timestamp=i)
             poses.append(res.T_wc)
             counts.append(res.surfel_count)
+            if snap is not None:
+                fin = last_slot(eng)["finish_vec"].clone()
+                with copies["recorder"], copies["counts"]:
+                    out = eager_frame(cfg, snap, d, r)
+                if not bits_equal(fin, out["finish_vec"]):
+                    copies["differing"].append(i)
         eng.flush()
     finally:
         Engine._close_loops = real
@@ -1096,10 +1338,12 @@ def phase_closure(cam, frames, gt_poses, main_ms, entries):
 
     # (a)
     cfg_a = engine_config(cam).with_(closeLoops=True)
-    run, launches, tracker_reads = counted(lambda _: run_sweep(cam, frames, cfg_a))
-    tracked = N_WARM + N_BENCH - 1
-    check_launched("(a) closeLoops sweep", launches, FRAME_KERNELS, per=tracked)
-    check_frame_reads("(a) closeLoops sweep", launches, tracker_reads, tracked)
+    run, launches, _ = counted(lambda _: run_sweep(cam, frames, cfg_a))
+    check_launched("(a) closeLoops sweep", launches, FRAME_KERNELS)
+    check_frame_launches("(a) closeLoops sweep (wrapper calls, eager and captured frames)",
+                         launches, cfg_a, run["engine"].runner.frames_run, solves=2)
+    check(run["reads"] == 1.0, f"(a) closeLoops: {run['reads']:.2f} host reads a frame "
+          f"beside the kept keyframes' views (1: its finish vector)")
     poses = check_sweep("(a) closeLoops sweep", run, gt_poses)
     again = run_sweep(cam, frames, cfg_a)
     check(np.array_equal(poses, np.stack(again["poses"]))
@@ -1109,21 +1353,28 @@ def phase_closure(cam, frames, gt_poses, main_ms, entries):
     check(keyframes >= 1, f"(a) {keyframes} fern keyframes")
     print(f"closeloops_ms_per_frame {run['ms']:.2f} (second run {again['ms']:.2f}; "
           f"phase 4 without closeLoops {main_ms:.2f})", flush=True)
-    print(f"closeloops_host_syncs_per_frame {run['reads']:.1f}", flush=True)
+    print(f"closeloops_host_syncs_per_frame {run['reads']:.2f}", flush=True)
     print(f"closeloops_fern_keyframes {keyframes}", flush=True)
 
     # (b), with the tracking steps' arguments kept per caller
     frames_b, gt_b = there_and_back(scene, cam)
     cap = {}
 
-    def drive_b(tracker_reads):
-        with StepRecorder(cap), CallerCounts(tracker_reads) as att:
-            return run_closures(cam, frames_b, closure_config(cam)), att
+    cfg_b = closure_config(cam)
+
+    def drive_b(_):
+        with CallerCounts() as att:
+            return run_closures(cam, frames_b, cfg_b), att
     (b, att_b), launches_b, reads_b = counted(drive_b)
     check_launched("(b) there-and-back", launches_b, FRAME_KERNELS)
-    att_b.check_identity("(b) there-and-back")
-    check_frame_reads("(b) there-and-back", launches_b, reads_b, len(frames_b) - 1,
-                      m2m_gn=att_b.launches["m2m"]["icp_step"], m2m_runs=att_b.runs["m2m"])
+    att_b.check_identity("(b) there-and-back", cfg_b)
+    fern_icp = att_b.launches["fern_icp"]
+    check_frame_launches("(b) there-and-back (wrapper calls beside the fern ICP's, eager "
+                         "and captured frames)",
+                         {k: n - fern_icp.get(k, 0) for k, n in launches_b.items()},
+                         cfg_b, b["engine"].runner.frames_run, solves=2)
+    print(f"  (b) host reads {reads_b} over {len(frames_b)} frames (the finish vectors, "
+          f"kept keyframes' views, the closures' own)", flush=True)
     eng = b["engine"]
     n = eng.surfel_count
     terr, _ = pose_error(b["poses"][-1], gt_b[-1])
@@ -1138,11 +1389,23 @@ def phase_closure(cam, frames, gt_poses, main_ms, entries):
               f"{c['reads']} host reads", flush=True)
     print_gates("(b) 640x480", closure_config(cam), b["gates"])
     print(f"  launches per caller: {att_b.launches} in {att_b.runs} runs", flush=True)
-    b2 = run_closures(cam, frames_b, closure_config(cam))
+    # the repeat run with every tracked frame also run eagerly on a copy of its
+    # state and inputs: the model-to-model solve's arguments (inside a
+    # replayed frame it makes no Python call) and launches, and the replays
+    # held against those eager frames
+    copies = dict(recorder=StepRecorder(cap), counts=CallerCounts(), differing=[])
+    b2 = run_closures(cam, frames_b, cfg_b, copies=copies)
+    att_m = copies["counts"]
+    att_m.check_identity("(b) eager copies", cfg_b)
+    check(att_m.runs["m2m"] == len(frames_b) - 1,
+          f"(b) {att_m.runs['m2m']} eager copies ran the model-to-model solve, one a "
+          f"tracked frame")
     run_small_closures()
     check(np.array_equal(b["poses"], b2["poses"]) and b["counts"] == b2["counts"]
-          and b["deforms"] == b2["deforms"],
-          "(b) a second identical run gives bit-identical poses, counts and deforms")
+          and b["deforms"] == b2["deforms"] and not copies["differing"],
+          f"(b) the repeat gives bit-identical poses, counts and deforms, and every frame's "
+          f"finish vector equals its eager copy's (differing at frames "
+          f"{copies['differing']})")
     by_level = {"icp_step": {}, "rgb_residual": {}, "rgb_step": {}}
     for lvl in range(3):
         H, W = cam.height >> lvl, cam.width >> lvl
@@ -1150,17 +1413,18 @@ def phase_closure(cam, frames, gt_poses, main_ms, entries):
             by_level[name][f"{W}x{H}"] = lv
     for key, e in step_entries("m2m", by_level, f"{cam.width}x{cam.height}",
                                dict(caller="m2m")).items():
-        entries[key] = dict(e, launches=att_b.launches["m2m"][key[0]])
+        # the predicated model-to-model solves of the eager copies of (b)'s frames
+        entries[key] = dict(e, launches=att_m.launches["m2m"][e["name"]])
 
     # (c)
     cap_c = {}
 
-    def drive_c(tracker_reads):
-        with StepRecorder(cap_c), CallerCounts(tracker_reads) as att:
+    def drive_c(_):
+        with StepRecorder(cap_c), CallerCounts() as att:
             return run_ferns(scene, cam), att
     (c, att_c), launches_c, _ = counted(drive_c)
-    check_launched("(c) ferns", launches_c, {"icp_step"})
-    att_c.check_identity("(c) ferns")
+    check_launched("(c) ferns", launches_c, {"icp_step", "gn_update"})
+    att_c.check_identity("(c) ferns", EngineConfig(camera=cam))
     terr, _ = pose_error(c["T"], c["T_re"]) if c["T"] is not None else (np.inf, 0)
     check(c["added"] >= 2 and c["closest"] == 0 and terr < 0.02 and c["constraints"] > 10,
           f"(c) {c['added']} keyframes, revisit retrieves keyframe {c['closest']}, "
@@ -1210,7 +1474,10 @@ def bench_config(cam: CameraConfig) -> EngineConfig:
 def kernels_per_frame(frames, cfg) -> tuple:
     """torch.profiler over five steady frames (8 warm-up frames first; at
     depth 2 the window dispatches five frames and finishes five older ones):
-    (device kernels per frame, device ms per frame)."""
+    (device kernels per frame, device ms per frame, the host's launch calls
+    per frame by name: a replayed frame is one graph launch and the copies
+    around it; the window's launches of every wrapper's kernel on the
+    card)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1222,9 +1489,14 @@ def kernels_per_frame(frames, cfg) -> tuple:
         for i in range(8, 13):
             eng.process_frame(frames[i][1], frames[i][0], timestamp=i)
         torch.cuda.synchronize()
-    kernels = [a for a in prof.key_averages() if a.device_type == DeviceType.CUDA]
+    avgs = prof.key_averages()
+    kernels = [a for a in avgs if a.device_type == DeviceType.CUDA]
+    host = {a.key: a.count / 5 for a in avgs
+            if a.device_type == DeviceType.CPU and a.key.startswith("cuda")
+            and ("Launch" in a.key or "Memcpy" in a.key or "Memset" in a.key)}
     return (sum(a.count for a in kernels) / 5,
-            sum(a.self_device_time_total for a in kernels) / 1e3 / 5)
+            sum(a.self_device_time_total for a in kernels) / 1e3 / 5, host,
+            trace_launches(prof)[0])
 
 
 def engine_state(eng) -> dict:
@@ -1254,8 +1526,8 @@ def same_state(a: dict, b: dict) -> bool:
 def run_checkpoint(frames_b, gt_b, cfg, path):
     """(d): (b)'s depth-2 run to frame CHECKPOINT_AFTER, `save_checkpoint`
     (it flushes), `load_checkpoint` into a new engine on the card; the next
-    frame through both (launch counts of each), then the rest through the
-    restored one."""
+    frame through both (the launches of each on the card, from a trace: the
+    original's is a replay), then the rest through the restored one."""
     from elasticfusion_tpu_torch.checkpoint import load_checkpoint, save_checkpoint
 
     eng = Engine(cfg, device=DEV)
@@ -1267,8 +1539,8 @@ def run_checkpoint(frames_b, gt_b, cfg, path):
     rest = load_checkpoint(path, cfg, device=DEV)
     loaded = engine_state(rest)
     d, r = frames_b[CHECKPOINT_AFTER]
-    _, l_orig, _ = counted(lambda _: eng.process_frame(r, d, timestamp=CHECKPOINT_AFTER))
-    _, l_rest, _ = counted(lambda _: rest.process_frame(r, d, timestamp=CHECKPOINT_AFTER))
+    _, _, _, l_orig = traced(lambda _: eng.process_frame(r, d, timestamp=CHECKPOINT_AFTER))
+    _, _, _, l_rest = traced(lambda _: rest.process_frame(r, d, timestamp=CHECKPOINT_AFTER))
     for i in range(CHECKPOINT_AFTER + 1, len(frames_b)):
         d, r = frames_b[i]
         rest.process_frame(r, d, timestamp=i)
@@ -1375,27 +1647,37 @@ def phase_pipeline(cam, frames, gt_poses, p5) -> None:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(f"== 6. pipelined frames, checkpoints, external poses, CLI at 640x480 ({smi})",
           flush=True)
-    tracked = N_WARM + N_BENCH - 1
     a0 = p5["a"]
 
     # (a)
     cfg_a = bench_config(cam)
-    run, launches, tracker_reads = counted(lambda _: run_sweep(cam, frames, cfg_a))
-    check_launched("6(a) bench.py configuration", launches, FRAME_KERNELS, per=tracked)
-    check_frame_reads("6(a) bench.py configuration", launches, tracker_reads, tracked)
+    run, launches, _ = counted(lambda _: run_sweep(cam, frames, cfg_a))
+    check_launched("6(a) bench.py configuration", launches, FRAME_KERNELS)
+    check_frame_launches("6(a) bench.py configuration (wrapper calls, eager and captured "
+                         "frames)", launches, cfg_a, run["engine"].runner.frames_run,
+                         solves=2)
+    check(run["reads"] == 1.0, f"6(a) depth 2: {run['reads']:.2f} host reads a frame "
+          f"beside the kept keyframes' views")
     check(np.array_equal(run["traj"], a0["traj"]) and run["counts"] == a0["counts"],
           "6(a) depth 2: poses and surfel counts bit-identical to phase 5 (a) at depth 0")
     again = run_sweep(cam, frames, cfg_a)
     check(np.array_equal(run["traj"], again["traj"]) and run["counts"] == again["counts"],
           "6(a) a second identical run gives bit-identical poses and counts")
-    k2, dev2 = kernels_per_frame(frames, cfg_a)
-    k0, dev0 = kernels_per_frame(frames, cfg_a.with_(pipeline_depth=0))
+    # one profiled run, at depth 2: depth 0 runs the same kernels
+    k2, dev2, host2, by_name = kernels_per_frame(frames, cfg_a)
+    check_frame_launches("6(a) the profiled window's 5 frames (launches on the card, "
+                         "trace)", by_name, cfg_a, 5, solves=2)
     print(f"bench_config_ms_per_frame {run['ms']:.2f} (second run {again['ms']:.2f}; "
           f"phase 5 (a) at depth 0 {a0['ms']:.2f}) [{smi}]", flush=True)
     print(f"bench_config_host_reads_per_frame {run['reads']:.2f} (depth 0 "
           f"{a0['reads']:.2f}) [{smi}]", flush=True)
-    print(f"bench_config_device_kernels_per_frame {k2:.0f} (depth 0 {k0:.0f}); device "
-          f"ms per frame {dev2:.2f} (depth 0 {dev0:.2f}) [{smi}]", flush=True)
+    print(f"bench_config_device_kernels_per_frame {k2:.0f}; device ms per frame "
+          f"{dev2:.2f} (profiled at depth 2) [{smi}]", flush=True)
+    print(f"bench_config_host_launch_calls_per_frame {host2} (a replayed frame; an eager "
+          f"frame launches each of its {k2:.0f} kernels itself) [{smi}]", flush=True)
+    print(f"bench_config_device_idle_share {1 - dev2 / run['ms']:.3f} (depth 0 "
+          f"{1 - dev2 / a0['ms']:.3f}: the same device ms over phase 5 (a)'s ms/frame) "
+          f"[{smi}]", flush=True)
 
     # (b)
     b0 = p5["b"]
@@ -1472,9 +1754,10 @@ def phase_pipeline(cam, frames, gt_poses, p5) -> None:
         check(e["same"] and e["finite"] and e["count"] > 0,
               f"6(e) {N_EXTERNAL} frames with external poses: the given poses returned, "
               f"{e['count']} surfels finite")
-        check(launches_e["fuse_window"] == N_EXTERNAL - 1 and len(reads_e) == 0,
+        check(launches_e["fuse_window"] == N_EXTERNAL - 1
+              and launches_e["so3_step"] == launches_e["gn_update"] == 0,
               f"6(e) fuse_window launched {launches_e['fuse_window']} times for "
-              f"{N_EXTERNAL - 1} fused frames, {len(reads_e)} tracker reads")
+              f"{N_EXTERNAL - 1} fused frames, the tracker not at all ({reads_e} host reads)")
 
         # (f)
         f, launches_f, _ = counted(lambda _: run_eval(tmp))
@@ -1863,7 +2146,8 @@ def run_fx16_frames(cam, frames, cfg):
     eng.flush()
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) / (N_FX16 - N_FX16 // 2) * 1e3
-    return dict(traj=np.stack([T for _, T in eng.poses]), ms=ms, count=eng.surfel_count)
+    return dict(traj=np.stack([T for _, T in eng.poses]), ms=ms, count=eng.surfel_count,
+                engine=eng)
 
 
 def fx16_on_off_solve(cam):
@@ -1948,14 +2232,20 @@ def phase_last_modules(cam, frames, gt_poses, main_ms, entries, smi) -> None:
 
     # (a)
     cfg_a = engine_config(cam).with_(fx16_tables=True)
-    a, launches_a, reads_a = counted(lambda _: run_fx16_frames(cam, frames, cfg_a))
+    a, calls_a, _, launches_a = traced(lambda _: run_fx16_frames(cam, frames, cfg_a))
     tracked = N_FX16 - 1
-    check_launched("8(a) fx16_tables sweep", launches_a, FRAME_KERNELS | {ICP_FX16},
-                   per=tracked)
-    check(launches_a[ICP_FX16] == launches_a["icp_step"],
-          f"8(a) every one of the {launches_a['icp_step']} icp_step launches read the "
-          f"fixed-point table")
-    check_frame_reads("8(a) fx16_tables sweep", launches_a, reads_a, tracked)
+    check_launched("8(a) fx16_tables sweep (launches on the card, trace)", launches_a,
+                   FRAME_KERNELS | {ICP_FX16}, per=tracked)
+    check_launched("8(a) fx16_tables sweep (wrapper calls)", calls_a,
+                   FRAME_KERNELS | {ICP_FX16})
+    check(launches_a[ICP_FX16] == launches_a["icp_step"]
+          and calls_a[ICP_FX16] == calls_a["icp_step"],
+          f"8(a) every one of the {launches_a['icp_step']} icp_step launches on the card "
+          f"({calls_a['icp_step']} wrapper calls) read the fixed-point table")
+    check_frame_launches("8(a) fx16_tables sweep (launches on the card, trace)", launches_a,
+                         cfg_a, tracked)
+    check_frame_launches("8(a) fx16_tables sweep (wrapper calls, eager and captured "
+                         "frames)", calls_a, cfg_a, a["engine"].runner.frames_run)
     terr, rerr = pose_error(a["traj"][-1], gt_poses[N_FX16 - 1])
     check(terr < MAX_TRANS_ERR_M and rerr < MAX_ROT_ERR_DEG,
           f"8(a) fx16_tables: pose error after {N_FX16} frames {terr * 1e3:.2f} mm / "
@@ -1968,8 +2258,8 @@ def phase_last_modules(cam, frames, gt_poses, main_ms, entries, smi) -> None:
           f"8(a) one 640x480 solve, fx16 on against off: {dt * 1e3:.4f} mm / {dr:.5f} deg "
           f"(bounds 0.5 mm / 0.05 deg; on is {pose_error(on, T1)[0] * 1e3:.3f} mm, off "
           f"{pose_error(off, T1)[0] * 1e3:.3f} mm from the truth)")
-    print(f"  8(a) ms/frame with fx16_tables {a['ms']:.2f} (frames 7-12; phase 4 without "
-          f"{main_ms:.2f}, frames 7-36) [{smi}]", flush=True)
+    print(f"  8(a) ms/frame with fx16_tables {a['ms']:.2f} (frames 7-12, traced; phase 4 "
+          f"without {main_ms:.2f}, frames 7-36) [{smi}]", flush=True)
 
     # (b)
     argv = ["-n", "2", "-cap", "20", "-frames", "5", "-device", "cuda:0"]
@@ -2009,6 +2299,129 @@ def phase_last_modules(cam, frames, gt_poses, main_ms, entries, smi) -> None:
     print(f"  8(b) -crossover wall ms per step at {out['live']} live surfels: S=1 "
           f"{out['results']['1']['wall_ms_per_step']:.2f}, S=2 "
           f"{out['results']['2']['wall_ms_per_step']:.2f} on one card [{smi}]", flush=True)
+
+
+# --- phase 9: the device-resident frame --------------------------------------
+
+
+def _frame_snapshot(eng) -> dict:
+    """Copies of everything a one-device frame reads besides its inputs."""
+    fern = eng._fern_inputs()
+    return dict(map=_snapshot(eng.map), T=eng._T_f32.clone(), so3=eng._so3_hist.clone(),
+                pred=_snapshot(eng._pred), fill=_snapshot(eng._fill),
+                dense=eng._dense_dev.clone(),
+                fern=None if fern is None else _snapshot(tuple(fern)),
+                tick=eng.tick, lost=eng.lost,
+                do_compact=eng.tick % eng.cfg.compact_every == 0)
+
+
+def last_slot(eng) -> dict:
+    """The finish slot of the engine's latest dispatched frame."""
+    return eng.runner.slots[(eng.runner._slot - 1) % len(eng.runner.slots)]
+
+
+def eager_frame(cfg, snap, d, r) -> dict:
+    """`_frame_main` called eagerly on a `_frame_snapshot` and a frame's
+    inputs (weight multiplier 1), as the engine's frame is called."""
+    f32 = dict(dtype=torch.float32, device=DEV)
+    tick = torch.full((), float(snap["tick"]), **f32)
+    return engine_mod._frame_main(
+        snap["map"], snap["T"], snap["so3"], snap["pred"].vertex, snap["pred"].normal,
+        snap["pred"].image, *snap["fill"], snap["dense"],
+        torch.from_numpy(d.astype(np.float32)).to(DEV), torch.from_numpy(r).to(DEV),
+        tick, tick, snap["lost"], torch.full((), 1.0, **f32), snap["fern"], cfg,
+        do_compact=snap["do_compact"])
+
+
+def bits_equal(x: torch.Tensor, y: torch.Tensor) -> bool:
+    """Equal bit for bit (a dead slot's NaN equals itself)."""
+    if x.dtype == torch.float32:
+        x, y = x.contiguous().view(torch.int32), y.contiguous().view(torch.int32)
+    return x.shape == y.shape and torch.equal(x, y)
+
+
+def run_replica(cam, frames, cfg):
+    """The sweep through `Engine` (frames replayed as CUDA graphs), each
+    frame held against `_frame_main` called eagerly on a copy of the same
+    carried state and inputs: finish vector, map, pose, prediction, fill-in,
+    coverage and SO(3) history bit-identical.  Returns per-frame reads and
+    whether each frame was a replay, and the engine."""
+    eng = Engine(cfg, device=DEV)
+    d, r = frames[0]
+    eng.process_frame(r, d, timestamp=0)
+    replayed, reads, same, differing = [], [], [], []
+    for i in range(1, len(frames)):
+        d, r = frames[i]
+        snap = _frame_snapshot(eng)
+        key = (eng.map.capacity, snap["do_compact"], snap["lost"],
+               None if snap["fern"] is None else snap["fern"][2].shape[0])
+        replayed.append(key in eng.runner.graphs)
+        kf0, r0 = len(eng.ferns.frames) if eng.ferns else 0, _device.host_reads
+        eng.process_frame(r, d, timestamp=i)
+        kf = (len(eng.ferns.frames) if eng.ferns else 0) - kf0
+        reads.append(_device.host_reads - r0 - kf)
+        got = dict(finish_vec=last_slot(eng)["finish_vec"].clone(), map=_snapshot(eng.map),
+                   T=eng._T_f32.clone(), pred=_snapshot(eng._pred), fill=_snapshot(eng._fill),
+                   dense=eng._dense_dev.clone(), so3=eng._so3_hist.clone())
+        m = snap["map"]
+        out = eager_frame(cfg, snap, d, r)
+        torch.cuda.synchronize()
+        pairs = [("finish_vec", got["finish_vec"], out["finish_vec"]),
+                 ("T", got["T"], out["T"]), ("dense", got["dense"], out["dense"]),
+                 ("so3", got["so3"], out["so3"])]
+        pairs += [(f"map.{f}", x, y) for f, x, y in zip(m._fields, got["map"], out["map"])]
+        pairs += [(f"pred.{f}", x, y) for f, x, y in zip(out["pred"]._fields, got["pred"],
+                                                        out["pred"])]
+        pairs += [(f"fill.{k}", x, y) for k, x, y in zip("vni", got["fill"], out["fill"])]
+        bad = [n for n, x, y in pairs if not bits_equal(x, y)]
+        same.append(not bad)
+        if bad:
+            differing.append((i, bad))
+    kf0, r0 = len(eng.ferns.frames) if eng.ferns else 0, _device.host_reads
+    eng.flush()
+    torch.cuda.synchronize()
+    flush_reads = (_device.host_reads - r0
+                   - ((len(eng.ferns.frames) if eng.ferns else 0) - kf0))
+    return dict(replayed=replayed, reads=reads, same=same, differing=differing, engine=eng,
+                flush_reads=flush_reads)
+
+
+def phase_device_frame(cam, frames, gt_poses, p4, smi) -> None:
+    """Phase 9: the frame as one device program.  Over phase 4's sweep and
+    over 6 (a)'s configuration (closeLoops, depth 2): replayed frames
+    bit-identical to eager `_frame_main` frames on the same inputs, one host
+    read a frame; the replays, the wrapper launches each capture recorded
+    and the capture time of every key."""
+    print(f"== 9. the device-resident frame ({smi})", flush=True)
+    for label, cfg in (("phase 4's configuration, depth 0", engine_config(cam)),
+                       ("6 (a)'s configuration (closeLoops), depth 2", bench_config(cam))):
+        rep = run_replica(cam, frames, cfg)
+        n_rep = sum(rep["replayed"])
+        check(n_rep >= len(frames) - 4 and all(rep["same"]),
+              f"9 {label}: {n_rep} of {len(rep['same'])} tracked frames replayed, every "
+              f"frame bit-identical to _frame_main run eagerly on its inputs "
+              f"(differing: {rep['differing'][:3]})")
+        # at depth 2 a frame's read happens at a later frame's finish, the
+        # last two at the flush: counted over the run
+        total = sum(rep["reads"]) + rep["flush_reads"]
+        check(total == len(rep["reads"]) and (cfg.pipeline_depth or set(rep["reads"]) == {1}),
+              f"9 {label}: {total} host reads for {len(rep['reads'])} tracked frames "
+              f"beside kept keyframes' views (per frame: {rep['reads']}, at the flush "
+              f"{rep['flush_reads']})")
+        runner = rep["engine"].runner
+        names = [f"{fn.__name__}.{a}" for fn, a in graphs_mod.COUNTERS]
+        for key, g in runner.graphs.items():
+            n = {k: v for k, v in zip(names, g.launches) if v}
+            print(f"  9 {label}: key (capacity, do_compact, lost, fern DB) {key}: "
+                  f"capture {runner.capture_seconds[key]:.3f} s, {runner.replays_of.get(key, 0)} "
+                  f"replays, wrapper launches its capture recorded {sum(g.launches)} {n} "
+                  f"[{smi}]", flush=True)
+        terr, rerr = pose_error(rep["engine"].T_wc, gt_poses[-1])
+        check(terr < MAX_TRANS_ERR_M and rerr < MAX_ROT_ERR_DEG,
+              f"9 {label}: final pose error {terr * 1e3:.2f} mm / {rerr:.3f} deg")
+    print(f"device_frame_host_reads_per_frame {p4['reads']:.2f} (phase 4) [{smi}]",
+          flush=True)
+    print("device_frame_tracker_reads 0 (tracking.py has no read_back)", flush=True)
 
 
 def phase_profile(cam, frames, steady_ms: float, cfg=None, label="") -> None:
@@ -2083,12 +2496,14 @@ def main() -> None:
     lap("7")
     phase_last_modules(cam, frames, gt_poses, run["ms"], entries, smi)
     lap("8")
+    phase_device_frame(cam, frames, gt_poses, run, smi)
+    lap("9")
     if args.profile:
         phase_profile(cam, frames, run["ms"])
         phase_profile(cam, frames, p5["a"]["ms"], engine_config(cam).with_(closeLoops=True),
                       " with closeLoops")
 
-    print("== 9. kernels", flush=True)
+    print("== 10. kernels", flush=True)
     kernels = []
     for e in entries.values():
         e = dict(e)

@@ -45,6 +45,7 @@ _COMMON_FLAGS = [
 SOURCES: Dict[str, List[str]] = {
     "gram": [],
     "odometry_steps": ["-fmad=false"],
+    "tracker_update": ["-fmad=false"],
     "splat_resolve": ["-fmad=false"],
     "fuse_window": ["-fmad=false"],
 }

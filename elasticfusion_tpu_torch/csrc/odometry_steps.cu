@@ -19,7 +19,8 @@
 // 2^24) live in registers; the grid-wide sum is finished in the same launch
 // by the block that ends last (gram_reduce.cuh), in a fixed order and with no
 // float atomics, so results repeat bit for bit.  Results go straight into the
-// caller's slice of the iteration's pack buffer, which is read back once.
+// caller's slice of the iteration's pack buffer, which the Gauss-Newton update
+// of tracker_update.cu reads on the card.
 //
 // Bound: bytes (ICP reads 6 floats per pixel and gathers 6; the RGB pair
 // reads a gate byte per pixel and 5-7 floats per pixel that passes it) against
@@ -30,7 +31,15 @@
 // matrix product, and the Gram sums, are written as explicit fmaf chains.
 //
 // Small matrices (poses, K R K^-1, K t) are read from device memory, where
-// the iteration's one upload put them.
+// the previous launch of tracker_update.cu wrote them.
+//
+// Every step is predicated on a device flag `active` (the tracker's
+// `lax.while_loop` condition of the reference, elasticfusion_tpu/tracking.py):
+// when *active == 0 every block returns before it writes anything.  No block
+// then draws a reduction ticket, so the counter of gram_reduce.cuh stays at
+// the 0 that its last-block `atomicInc` wrapped it back to.  A level's
+// iterations are thus a fixed sequence of launches, and an iteration after
+// the loop's exit changes nothing.
 
 #include "gram_reduce.cuh"
 
@@ -143,6 +152,7 @@ __device__ __forceinline__ bool fetch_model(const void* __restrict__ table,
 
 template <bool FX16>
 __global__ void EF_STEP_BOUNDS icp_step_kernel(
+    const int* __restrict__ active,        // 0: return before any write
     const float* __restrict__ T_curr,      // [4,4] world <- current camera
     const float* __restrict__ T_prev,      // [4,4] world <- previous camera
     const float* __restrict__ vmap_curr,   // [3,N] camera frame
@@ -153,6 +163,7 @@ __global__ void EF_STEP_BOUNDS icp_step_kernel(
     int H, int W, float fx, float fy, float cx, float cy, float dist_thresh,
     float angle_thresh_sin, float* __restrict__ partials, unsigned int* ticket,
     float* __restrict__ out) {
+  if (*active == 0) return;
   constexpr int T = 29;
   __shared__ float Tc[12], Tp[12];
   __shared__ float range[FX16 ? 12 : 1];
@@ -243,6 +254,7 @@ __global__ void fx16_decode_kernel(const unsigned int* __restrict__ words,
 // ---------------------------------------------------------------------------
 
 __global__ void EF_STEP_BOUNDS rgb_residual_kernel(
+    const int* __restrict__ active,
     const unsigned char* __restrict__ gates,  // [N] pose-independent gates
     const float* __restrict__ next_depth,     // [N]
     const float* __restrict__ next_image,     // [N]
@@ -252,6 +264,7 @@ __global__ void EF_STEP_BOUNDS rgb_residual_kernel(
     int H, int W, float max_depth_delta, int* __restrict__ flat0_out,
     float* __restrict__ diff_out, float* __restrict__ partials,
     unsigned int* ticket, float* __restrict__ stats) {
+  if (*active == 0) return;
   constexpr int T = 2;
   __shared__ float M[12];
   if (threadIdx.x < 9) M[threadIdx.x] = krkinv[threadIdx.x];
@@ -302,13 +315,15 @@ __global__ void EF_STEP_BOUNDS rgb_residual_kernel(
 // ---------------------------------------------------------------------------
 
 __global__ void EF_STEP_BOUNDS rgb_step_kernel(
-    const int* __restrict__ flat0_in, const float* __restrict__ diff_in,
+    const int* __restrict__ active, const int* __restrict__ flat0_in,
+    const float* __restrict__ diff_in,
     const float* __restrict__ stats, const float* __restrict__ sigma_ptr,
     const float* __restrict__ cloud,  // [3,N] back-projected last depth
     const float* __restrict__ dIdx, const float* __restrict__ dIdy, int N,
     float fx, float fy, float sobel_scale, float* __restrict__ partials,
     unsigned int* ticket, float* __restrict__ out_Ab,
     float* __restrict__ sum_sq) {
+  if (*active == 0) return;
   constexpr int T = 28;
   float sigma;
   if (sigma_ptr != nullptr) {
@@ -364,6 +379,7 @@ __global__ void EF_STEP_BOUNDS rgb_step_kernel(
 // ---------------------------------------------------------------------------
 
 __global__ void EF_STEP_BOUNDS so3_step_kernel(
+    const int* __restrict__ active,
     const float* __restrict__ last_image,  // [H,W] intensity
     const float* __restrict__ next_image,  // [H,W]
     const float* __restrict__ basis,       // [3,3] K R K^-1
@@ -371,6 +387,7 @@ __global__ void EF_STEP_BOUNDS so3_step_kernel(
     const float* __restrict__ krlr,        // [3,3] K R
     int H, int W, float* __restrict__ partials, unsigned int* ticket,
     float* __restrict__ out) {
+  if (*active == 0) return;
   constexpr int T = 11;
   __shared__ float M[27];
   if (threadIdx.x < 9) M[threadIdx.x] = basis[threadIdx.x];
@@ -442,7 +459,8 @@ __global__ void EF_STEP_BOUNDS so3_step_kernel(
 
 // los == scales == nullptr: prev_table is the [6,N] float32 table; both
 // given: it is the [3,N] fixed-point words with their [6] ranges.
-extern "C" int ef_icp_step(const float* T_curr, const float* T_prev,
+extern "C" int ef_icp_step(const int* active, const float* T_curr,
+                           const float* T_prev,
                            const float* vmap_curr, const float* nmap_curr,
                            const void* prev_table, const float* los,
                            const float* scales, int H, int W, float fx,
@@ -452,11 +470,11 @@ extern "C" int ef_icp_step(const float* T_curr, const float* T_prev,
                            void* stream) {
   if (los != nullptr)
     icp_step_kernel<true><<<n_blocks, EF_RED_THREADS, 0, (cudaStream_t)stream>>>(
-        T_curr, T_prev, vmap_curr, nmap_curr, prev_table, los, scales, H, W,
+        active, T_curr, T_prev, vmap_curr, nmap_curr, prev_table, los, scales, H, W,
         fx, fy, cx, cy, dist_thresh, angle_thresh_sin, partials, ticket, out);
   else
     icp_step_kernel<false><<<n_blocks, EF_RED_THREADS, 0, (cudaStream_t)stream>>>(
-        T_curr, T_prev, vmap_curr, nmap_curr, prev_table, los, scales, H, W,
+        active, T_curr, T_prev, vmap_curr, nmap_curr, prev_table, los, scales, H, W,
         fx, fy, cx, cy, dist_thresh, angle_thresh_sin, partials, ticket, out);
   return (int)cudaGetLastError();
 }
@@ -469,7 +487,7 @@ extern "C" int ef_fx16_decode(const unsigned int* words, const float* los,
   return (int)cudaGetLastError();
 }
 
-extern "C" int ef_rgb_residual(const unsigned char* gates,
+extern "C" int ef_rgb_residual(const int* active, const unsigned char* gates,
                                const float* next_depth, const float* next_image,
                                const float* last_table, const float* krkinv,
                                const float* kt, int H, int W,
@@ -478,12 +496,12 @@ extern "C" int ef_rgb_residual(const unsigned char* gates,
                                unsigned int* ticket, int n_blocks, float* stats,
                                void* stream) {
   rgb_residual_kernel<<<n_blocks, EF_RED_THREADS, 0, (cudaStream_t)stream>>>(
-      gates, next_depth, next_image, last_table, krkinv, kt, H, W,
+      active, gates, next_depth, next_image, last_table, krkinv, kt, H, W,
       max_depth_delta, flat0_out, diff_out, partials, ticket, stats);
   return (int)cudaGetLastError();
 }
 
-extern "C" int ef_rgb_step(const int* flat0, const float* diff,
+extern "C" int ef_rgb_step(const int* active, const int* flat0, const float* diff,
                            const float* stats, const float* sigma,
                            const float* cloud, const float* dIdx,
                            const float* dIdy, int N, float fx, float fy,
@@ -491,17 +509,18 @@ extern "C" int ef_rgb_step(const int* flat0, const float* diff,
                            unsigned int* ticket, int n_blocks, float* out_Ab,
                            float* sum_sq, void* stream) {
   rgb_step_kernel<<<n_blocks, EF_RED_THREADS, 0, (cudaStream_t)stream>>>(
-      flat0, diff, stats, sigma, cloud, dIdx, dIdy, N, fx, fy, sobel_scale,
+      active, flat0, diff, stats, sigma, cloud, dIdx, dIdy, N, fx, fy, sobel_scale,
       partials, ticket, out_Ab, sum_sq);
   return (int)cudaGetLastError();
 }
 
-extern "C" int ef_so3_step(const float* last_image, const float* next_image,
+extern "C" int ef_so3_step(const int* active, const float* last_image,
+                           const float* next_image,
                            const float* basis, const float* kinv,
                            const float* krlr, int H, int W, float* partials,
                            unsigned int* ticket, int n_blocks, float* out,
                            void* stream) {
   so3_step_kernel<<<n_blocks, EF_RED_THREADS, 0, (cudaStream_t)stream>>>(
-      last_image, next_image, basis, kinv, krlr, H, W, partials, ticket, out);
+      active, last_image, next_image, basis, kinv, krlr, H, W, partials, ticket, out);
   return (int)cudaGetLastError();
 }

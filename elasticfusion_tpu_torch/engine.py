@@ -10,22 +10,27 @@ The loop-closure *decisions* (fern retrieval, deformation Gauss-Newton
 acceptance) and the relocalization state machine run on the host, and an
 accepted closure is applied by `_apply_closure`.
 
+The frame's control flow is on the device, as in the reference package: the
+tracker's loops are predicated launches (tracking.py), the tracking gate is
+computed on the device, and where the reference branches with `lax.cond`
+(fuse + clean under the gate, the inactive prediction and model-to-model
+solve while an inactive surfel exists) `_cond` runs both branches and
+selects on the device.  So a frame reads the host once: its packed finish
+vector.  A one-device frame runs on the static tensors of a `FrameRunner`
+(graphs.py), which on a card captures it as a CUDA graph per static key and
+replays it.
+
 With `pipeline_depth = d > 0` up to d frames are in flight: a frame is
-dispatched (its whole device program, the tracker's host reads included) and
-carried on from the tracker's host pose, and is finished — its packed finish
-vector read, its pose logged, its loop-closure decisions made — d frames
-later (`flush` finishes them all).  A closure or teleport applied at the
-finish of frame N rewrites the carried map and pose while frames
-N+1..N+d are in flight; those frames get the same rigid fix when they
-finish (`_pose_fixes`).  At depth 0 every frame finishes inside
-`process_frame`.  Device→host reads (`_device.host_reads` counts them) per
-frame: the tracker's (one per Gauss-Newton or SO(3) iteration), one of the
-packed finish vector, and with `closeLoops` one of the "inactive surfel
-exists" predicate plus, when the model-to-model solve runs, its tracker's
-reads.  Where the reference package decides on its device (`lax.cond`),
-this port decides on the host from values the host already holds: the
-tracking gates from the tracker's last read, the model-to-model skip from
-that one predicate read.
+dispatched (its whole device program, and the copy of its finish vector to
+pinned host memory) and the next frame carries on from its pose on the
+device, and is finished — its finish vector read, its pose logged, its
+loop-closure decisions made — d frames later (`flush` finishes them all).
+A closure or teleport applied at the finish of frame N rewrites the carried
+map and pose while frames N+1..N+d are in flight; those frames get the same
+rigid fix when they finish (`_pose_fixes`).  At depth 0 every frame
+finishes inside `process_frame`.  Device→host reads (`_device.host_reads`
+counts them): one a frame, plus what an accepted keyframe or a loop-closure
+decision reads.
 
 Externally supplied poses (`in_T_wc` after the first frame) fuse without
 tracking or loop closure, synchronously.
@@ -51,10 +56,11 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from ._device import DeviceLike, read_back, resolve_device
+from ._device import DeviceLike, PendingRead, read_back, resolve_device
 from .config import EngineConfig
 from .deformation import Deformation, _sample_every, apply_graph_to_surfels
 from .ferns import Ferns, decimate_views, fern_encode_device, fern_score_device
+from .graphs import FrameRunner, copy_into
 from .ops.fillin import fill_all
 from .ops.fuse import FuseStats, clean, fuse
 from .ops.preprocess import (
@@ -71,7 +77,6 @@ from .se3 import invert, np_orthonormalize, se3_log_norm
 from .surfels import SurfelMap, init_map_from_frame, recip32
 from .tracking import (
     OdometryInputs,
-    TrackingHost,
     TrackingResult,
     build_current_frame_pyramids,
     build_current_model_pyramids,
@@ -282,16 +287,45 @@ def _empty_tracking_result(device) -> TrackingResult:
         icp_error=z, icp_count=z, rgb_error=z, rgb_count=z,
         so3_error=z, so3_count=z,
         A=torch.zeros((6, 6), device=device), b=torch.zeros((6,), device=device),
+        cov_ok=torch.zeros((), dtype=torch.bool, device=device),
     )
+
+
+def _where(pred: torch.Tensor, a, b):
+    """`a` where the 0-d bool `pred` holds, else `b`, leaf by leaf over
+    equal nests of tuples / NamedTuples of tensors."""
+    if isinstance(a, torch.Tensor):
+        return torch.where(pred, a, b)
+    vals = [_where(pred, x, y) for x, y in zip(a, b)]
+    return type(a)(*vals) if hasattr(a, "_fields") else type(a)(vals)
+
+
+def _cond(pred: torch.Tensor, run, skip, on_host: bool):
+    """`lax.cond(pred, run, skip)` of the reference package.  Both branches
+    run and `pred` selects on the device — a captured frame cannot branch —
+    and where it is false every output is `skip`'s bit for bit; `run` is
+    handed the predicate to predicate its own tracker solves.  With
+    `on_host` (a sharded frame, which stays eager) the predicate is read and
+    only the chosen branch runs (`run(None)`)."""
+    if on_host:
+        return run(None) if bool(read_back(pred)) else skip()
+    return _where(pred, run(pred), skip())
+
+
+def _branches_on_host(m) -> bool:
+    """Where `_cond` reads its predicate and runs one branch: a sharded map,
+    whose frame is eager."""
+    return isinstance(m, ShardedMap)
 
 
 def _model_to_model(
     new_vertex, new_normal, new_image,
     old_vertex, old_normal, old_image,
-    T_wc, cfg: EngineConfig,
+    T_wc, cfg: EngineConfig, enable: Optional[torch.Tensor] = None,
 ) -> TrackingResult:
     """modelToModel odometry: align the ACTIVE prediction against the INACTIVE
-    one (ElasticFusion.cpp:462-471; icpWeight=10, no SO3)."""
+    one (ElasticFusion.cpp:462-471; icpWeight=10, no SO3); `enable`
+    predicates the solve (`get_incremental_transformation`)."""
     m2m_cfg = cfg.with_(so3=False, icp_weight=10.0)
     vmaps_c, nmaps_c, images_c, depths_c = build_current_model_pyramids(
         new_vertex, new_normal, new_image, m2m_cfg
@@ -306,31 +340,24 @@ def _model_to_model(
         last_depths=depths_m, next_depths=depths_c,
         so3_last_image=images_c[m2m_cfg.num_pyramid_levels - 1], T_prev=T_wc,
     )
-    return get_incremental_transformation(inputs, m2m_cfg)
+    return get_incremental_transformation(inputs, m2m_cfg, enable)
 
 
-def _tracking_ok(host: TrackingHost, cfg: EngineConfig) -> bool:
-    """Tracking-failure gates (cpp:326-344) in float32, as the reference
-    package evaluates them on its device: the ICP error under its limit and
-    every diagonal entry of (A + 1e-12 I)^-1 under the covariance limit."""
-    f32 = np.float32
-    A = np.asarray(host.A, f32) + np.eye(6, dtype=f32) * f32(1e-12)
-    try:
-        cov = np.linalg.inv(A)
-    except np.linalg.LinAlgError:
-        return False
-    return (bool(f32(host.icp_error) < f32(cfg.reloc_icp_error))
-            and bool(np.all(np.diag(cov) < f32(cfg.reloc_cov_threshold))))
+def _tracking_ok(res: TrackingResult, cfg: EngineConfig) -> torch.Tensor:
+    """Tracking-failure gates (cpp:326-344) on the device (0-d bool), in
+    float32 as the reference evaluates them: the ICP error under its limit
+    and every diagonal entry of (A + 1e-12 I)^-1 under the covariance limit
+    (`res.cov_ok`, from the tracker's finishing `gn_update`)."""
+    return (res.icp_error < cfg.reloc_icp_error) & res.cov_ok
 
 
-def _closure_inputs(m: SurfelMap, T, T_host, pred: Prediction, fill, tick, fern,
-                    cfg: EngineConfig):
+def _closure_inputs(m: SurfelMap, T, pred: Prediction, fill, tick, fern,
+                    cfg: EngineConfig, on_host: bool):
     """What the host's loop-closure decisions read of a frame: the fern views,
     their codes and retrieval scores against the keyframe DB
-    (Ferns.cpp:108-228), the deformation node sample (cpp:591-597) and — only
-    while an inactive surfel exists, which costs one read to know — the
-    INACTIVE prediction and the model-to-model solve against it
-    (cpp:447-511)."""
+    (Ferns.cpp:108-228), the deformation node sample (cpp:591-597) and — under
+    `_cond` on "an inactive surfel exists" — the INACTIVE prediction and the
+    model-to-model solve against it (cpp:447-511)."""
     cam = cfg.camera
     vtx, nrm, img = fill
     fern_flat, fern_rgbd, db_codes, db_good, db_time, db_count = fern
@@ -342,19 +369,24 @@ def _closure_inputs(m: SurfelMap, T, T_host, pred: Prediction, fill, tick, fern,
     node_pos, node_t = ops.sample_nodes(m, cfg.def_graph_sample_rate)
 
     hs, ws = -(-cam.height // CONS_SAMPLE), -(-cam.width // CONS_SAMPLE)
-    if bool(read_back(ops.inactive_count(m, tick, cfg) > 0)):
+
+    def run(enable):
         old_pred = _combined_predict(m, T, 0.0, tick - cfg.time_delta,
                                      cfg.time_delta, cfg)
-        inact_px = torch.sum(old_pred.depth > 0).to(torch.int32)
         m2m = _model_to_model(
             pred.vertex, pred.normal, pred.image,
-            old_pred.vertex, old_pred.normal, old_pred.image, T_host, cfg,
+            old_pred.vertex, old_pred.normal, old_pred.image, T, cfg, enable,
         )
-        cons_ot = old_pred.time[::CONS_SAMPLE, ::CONS_SAMPLE]
-    else:
-        m2m = _empty_tracking_result(T.device)
-        inact_px = torch.zeros((), dtype=torch.int32, device=T.device)
-        cons_ot = torch.zeros((hs, ws), device=T.device)
+        return (m2m, torch.sum(old_pred.depth > 0).to(torch.int32),
+                old_pred.time[::CONS_SAMPLE, ::CONS_SAMPLE])
+
+    def skip():
+        return (_empty_tracking_result(T.device),
+                torch.zeros((), dtype=torch.int32, device=T.device),
+                torch.zeros((hs, ws), device=T.device))
+
+    m2m, inact_px, cons_ot = _cond(ops.inactive_count(m, tick, cfg) > 0, run, skip,
+                                   on_host)
     return dict(
         views=views, codes=codes, good=good, scores=scores,
         node_pos=node_pos, node_t=node_t, m2m=m2m, inact_px=inact_px,
@@ -370,9 +402,9 @@ def _frame_main(
     fill_vertex, fill_normal, fill_image,    # its fill-in
     dense_prev,                              # f32: carried predict coverage
     depth_mm, rgb,                           # current raw frame
-    tick, max_time,                          # f32 scalars
+    tick, max_time,                          # 0-d f32 tensors
     lost: bool,
-    weight_mult: float,
+    weight_mult,                             # 0-d f32 tensor
     fern,                                    # fern tables + keyframe DB, or None
     cfg: EngineConfig,
     do_compact: bool = True,
@@ -383,9 +415,13 @@ def _frame_main(
       preprocess -> frame-to-model tracking (against the carried prediction
       or its fill-in, selected on the device by denseEnough, cpp:256-268,
       303-315) -> velocity fusion weight (cpp:371-383) -> tracking gates
-      (cpp:326-344, reloc_mode) -> fuse -> clean (unless lost or the gates
-      fail) -> end-of-frame combinedPredict + FillIn (cpp:599) -> with
-      `fern`: `_closure_inputs`.
+      (cpp:326-344, reloc_mode, on the device) -> fuse -> clean (unless
+      lost; under `_cond` on the gates) -> end-of-frame combinedPredict +
+      FillIn (cpp:599) -> with `fern`: `_closure_inputs`.
+
+    Nothing in it reads the device: every per-frame value is a tensor, every
+    Python value static (`lost`, `do_compact`, the configuration), so a
+    one-device frame can be captured as a CUDA graph.
 
     Like the reference `_frame_main`, a one-device map's `clean` runs on the
     exact float32 patch whatever `cfg.fx16_clean` says, and a sharded map's
@@ -410,23 +446,33 @@ def _frame_main(
     )
     weighting = torch.clamp(1.0 - w * recip32(0.01), min=0.5) * weight_mult
 
-    track_ok = _tracking_ok(res.host, cfg) if cfg.reloc_mode else True
+    track_ok = (_tracking_ok(res, cfg) if cfg.reloc_mode
+                else torch.ones((), dtype=torch.bool, device=T.device))
 
     ops = _map_ops(m)
-    if cfg.rgb_only or lost or not track_ok:
+    on_host = _branches_on_host(m)
+
+    def no_fuse():
         z = torch.zeros((), dtype=torch.int32, device=T.device)
-        stats = FuseStats(matched=z, added=z, count=m.count)
+        return m, FuseStats(matched=z, added=z, count=m.count)
+
+    def with_fuse(_):
+        return _fuse_clean(m, T, tick, rgb, raw_m, filt_m, weighting, cfg, do_compact,
+                           ops.FRAME_CLEAN_FX16 and cfg.fx16_clean)
+
+    if cfg.rgb_only or lost:
+        m, stats = no_fuse()
+    elif cfg.reloc_mode:
+        m, stats = _cond(track_ok, with_fuse, no_fuse, on_host)
     else:
-        m, stats = _fuse_clean(
-            m, T, tick, rgb, raw_m, filt_m, weighting, cfg, do_compact,
-            ops.FRAME_CLEAN_FX16 and cfg.fx16_clean)
+        m, stats = with_fuse(None)
 
     # end-of-frame predict (cpp:599) — next frame's tracking target
     pred, vtx, nrm, img, dense = _predict(
         m, T, tick, max_time, filt_m, rgb, lost, cfg)
     out = dict(
         map=m, T=T, so3=so3_cur, res=res, pred=pred, fill=(vtx, nrm, img),
-        dense=dense, stats=stats, filt=filt_m,
+        dense=dense, stats=stats, filt=filt_m, track_ok=track_ok,
     )
 
     # everything `_finish` reads, as ONE f32 vector in the reference package's
@@ -434,12 +480,11 @@ def _frame_main(
     f32 = torch.float32
     fin = [
         T.reshape(-1), res.icp_error[None], res.icp_count[None],
-        torch.full((1,), float(track_ok), device=T.device),
+        track_ok.to(f32)[None],
         stats.count.to(f32)[None], ops.max_count(m).to(f32)[None],
     ]
     if fern is not None:
-        c = _closure_inputs(m, T, torch.from_numpy(res.host.T), pred,
-                            (vtx, nrm, img), tick, fern, cfg)
+        c = _closure_inputs(m, T, pred, (vtx, nrm, img), tick, fern, cfg, on_host)
         out.update(c)
         add_min, best_id, best_d, block_hd = c["scores"]
         m2m = c["m2m"]
@@ -496,7 +541,6 @@ def _apply_closure(
     T_new,                 # (4,4) f32 corrected pose, T_fix @ carried pose
     tick_now: float, max_time: float, lost: bool,
     filt_m, rgb,           # latest frame (for the re-predict fill-in)
-    fern_flat, fern_rgbd,
     cfg: EngineConfig,
     fern_accepted: bool,
 ):
@@ -505,8 +549,8 @@ def _apply_closure(
     than the closure frame through the optimised graph and apply the rigid
     correction to those fused at or after it, (b) unless a fern closed the
     loop, refresh timestamps against the synthesized inactive depth
-    (cpp:561-570), (c) re-clean, (d) regenerate the carried prediction and
-    fern state at the corrected pose.
+    (cpp:561-570), (c) re-clean, (d) regenerate the carried prediction at
+    the corrected pose (the next frame encodes its own fern view).
 
     A sharded map is repaired sub-map by sub-map (ref
     `_apply_closure_sharded`).  The synthesized depth is rendered from the
@@ -537,10 +581,7 @@ def _apply_closure(
                        ops.FRAME_CLEAN_FX16 and cfg.fx16_clean)
     pred, vtx, nrm, img, dense = _predict(
         m2, T_new, tick_now, max_time, filt_m, rgb, lost, cfg)
-    views = decimate_views(img, vtx, nrm, cfg.fern_pyramid_factor)
-    codes, good = fern_encode_device(views[0], views[1], fern_flat, fern_rgbd)
-    return dict(map=m2, pred=pred, fill=(vtx, nrm, img), dense=dense,
-                views=views, codes=codes, good=good)
+    return dict(map=m2, pred=pred, fill=(vtx, nrm, img), dense=dense)
 
 
 def _predict_only(m: SurfelMap, T_wc, tick, max_time, depth_filt_m, rgb, lost,
@@ -621,16 +662,16 @@ class Engine:
         self.fern_deforms = 0
         # carried device state
         self._T_f32 = None          # (4,4) f32 pose of the latest dispatched
-                                    # frame, kept on the host: the tracker
-                                    # reads it there and uploads it
+                                    # frame, on the device
         self._so3_hist = None       # prev frame coarsest intensity
         self._pred = None           # Prediction from end-of-last-frame predict()
         self._fill = None           # (vertex, normal, image) fill-in maps
         self._dense_dev = None      # f32 scalar: last predict coverage
-        self._views = None          # decimated (img, vtx, nrm) of last predict
-        self._codes = None          # fern codes of last predict
-        self._good = None
         self._last_frame = None     # (filtered depth, rgb) of the latest frame
+        # a one-device map's frames run on static tensors, captured as CUDA
+        # graphs on a card (graphs.py); a sharded map's frames run eagerly
+        self.runner = (FrameRunner(self.device, cfg.pipeline_depth)
+                       if self.group is None else None)
         self._count_finished = 0    # exact count of the last finished frame
         self._count_max_finished = 0  # and of its fullest shard
         self._last_icp_error = 0.0
@@ -734,36 +775,37 @@ class Engine:
                    recovery=self.last_frame_recovery, seq=self._seq)
         self.last_frame_recovery = False
 
-        # "dispatch": the frame's device program (the tracker's reads
-        # included); "drain": finishing the frames older than pipeline_depth
+        # "dispatch": the frame's device program and the start of its finish
+        # vector's copy to the host; "drain": finishing the frames older than
+        # pipeline_depth
         sw.tick("dispatch")
-        tick_dev = torch.tensor(float(self.tick), device=self.device)
-        out = _frame_main(
-            self.map, self._T_f32, self._so3_hist,
-            self._pred.vertex, self._pred.normal, self._pred.image,
-            self._fill[0], self._fill[1], self._fill[2],
-            self._dense_dev, depth_d, rgb_d,
-            tick_dev, tick_dev, self.lost, float(weight_multiplier),
-            self._fern_inputs(), cfg,
-            do_compact=(self.tick % cfg.compact_every == 0),
-        )
-        sw.tock("dispatch")
-
-        # the carried state advances at once; the next frame starts from the
-        # tracker's host pose (the same float32 values the finish vector
-        # holds), so nothing waits for this frame's finish
-        self.map = out["map"]
-        self._T_f32 = torch.from_numpy(out["res"].host.T)
-        self._so3_hist = out["so3"]
-        self._pred = out["pred"]
-        self._fill = out["fill"]
-        self._dense_dev = out["dense"]
-        self._last_frame = (out["filt"], rgb_d)
-        if cfg.closeLoops:
-            self._views = out["views"]
-            self._codes, self._good = out["codes"], out["good"]
-
+        do_compact = self.tick % cfg.compact_every == 0
+        if self.runner is not None:
+            out = self._run_frame(depth_d, rgb_d, float(weight_multiplier), do_compact)
+        else:
+            f32 = dict(dtype=torch.float32, device=self.device)
+            tick_dev = torch.full((), float(self.tick), **f32)
+            out = _frame_main(
+                self.map, self._T_f32, self._so3_hist,
+                self._pred.vertex, self._pred.normal, self._pred.image,
+                self._fill[0], self._fill[1], self._fill[2],
+                self._dense_dev, depth_d, rgb_d, tick_dev, tick_dev, self.lost,
+                torch.full((), float(weight_multiplier), **f32),
+                self._fern_inputs(), cfg, do_compact=do_compact,
+            )
+            # the carried state advances at once, so nothing waits for this
+            # frame's finish
+            self.map = out["map"]
+            self._T_f32 = out["T"]
+            self._so3_hist = out["so3"]
+            self._pred = out["pred"]
+            self._fill = out["fill"]
+            self._dense_dev = out["dense"]
+            out.update(rgb=rgb_d, count=out["stats"].count)
+        self._last_frame = (out["filt"], out["rgb"])
         rec["out"] = out
+        rec["finish"] = PendingRead(out["finish_vec"])
+        sw.tock("dispatch")
         self._inflight.append(rec)
         self._seq += 1
         # the tick does not advance while lost
@@ -776,6 +818,46 @@ class Engine:
         sw.tock("drain")
         sw.tock("Run")
         return self._result()
+
+    def _run_frame(self, depth_d, rgb_d, weight_multiplier: float,
+                   do_compact: bool) -> dict:
+        """A one-device frame through the `FrameRunner`: the carried state
+        and the inputs into its static tensors, the frame run (eagerly, or
+        replayed as a CUDA graph), the carried state read back from the
+        static tensors it updated.  Returns the frame's finish slot."""
+        cfg = self.cfg
+        fern = self._fern_inputs()
+        S = self.runner.load(
+            dict(map=self.map, T=self._T_f32, so3=self._so3_hist, pred=self._pred,
+                 fill=self._fill, dense=self._dense_dev),
+            dict(depth=depth_d, rgb=rgb_d),
+            dict(tick=float(self.tick), max_time=float(self.tick),
+                 weight=weight_multiplier))
+        lost = self.lost
+
+        def frame() -> dict:
+            out = _frame_main(
+                S["map"], S["T"], S["so3"], S["pred"].vertex, S["pred"].normal,
+                S["pred"].image, *S["fill"], S["dense"], S["depth"], S["rgb"],
+                S["tick"], S["max_time"], lost, S["weight"], fern, cfg,
+                do_compact=do_compact)
+            # the new carried state, in place (the reference donates its map)
+            copy_into([S["map"], S["T"], S["so3"], S["pred"], S["fill"], S["dense"]],
+                      [out["map"], out["T"], out["so3"], out["pred"], out["fill"],
+                       out["dense"]])
+            keep = dict(finish_vec=out["finish_vec"], count=out["stats"].count,
+                        filt=out["filt"], rgb=S["rgb"])
+            if fern is not None:
+                keep.update(views=out["views"], node_pos=out["node_pos"],
+                            node_t=out["node_t"])
+            return keep
+
+        key = (self.map.capacity, do_compact, lost,
+               None if fern is None else fern[2].shape[0])
+        out = self.runner.run(key, frame)
+        self.map, self._T_f32, self._so3_hist = S["map"], S["T"], S["so3"]
+        self._pred, self._fill, self._dense_dev = S["pred"], S["fill"], S["dense"]
+        return out
 
     # -- frame variants -------------------------------------------------------
 
@@ -796,15 +878,12 @@ class Engine:
         self._so3_hist = _coarse_intensity(rgb_d, cfg)  # initFirstRGB
         if in_T_wc is not None:
             self.T_wc = np.asarray(in_T_wc, np.float64)
-        self._T_f32 = torch.from_numpy(self.T_wc.astype(np.float32))
+        self._T_f32 = self._device_pose()
         one = torch.tensor(1.0, device=self.device)
-        self._pred, self._fill, self._dense_dev, self._views = _predict_only(
-            self.map, self._T_f32.to(self.device), one, one, filt_m, rgb_d, False, cfg,
+        self._pred, self._fill, self._dense_dev, _ = _predict_only(
+            self.map, self._T_f32, one, one, filt_m, rgb_d, False, cfg,
         )
         self._last_frame = (filt_m, rgb_d)
-        if self.ferns is not None:
-            self._codes, self._good = fern_encode_device(
-                self._views[0], self._views[1], *self.ferns.encode_tables())
         self.tick_poses.append((1, self.T_wc.copy()))
         self.pose_times.append(int(timestamp))
         if self.local_deformation is not None:
@@ -827,7 +906,7 @@ class Engine:
         raw_m, filt_m = _preprocess(depth_d, cfg)
         T_prev = self.T_wc.copy()
         self.T_wc = np.asarray(in_T_wc, np.float64)
-        self._T_f32 = torch.from_numpy(self.T_wc.astype(np.float32))
+        self._T_f32 = self._device_pose()
         self._so3_hist = _coarse_intensity(rgb_d, cfg)
         # velocity-adaptive fusion weight on the host (cpp:371-383)
         T_cp = np.linalg.inv(self.T_wc) @ T_prev
@@ -836,11 +915,11 @@ class Engine:
                                  dtype=torch.float32, device=self.device)
 
         tick_dev = torch.tensor(float(self.tick), device=self.device)
-        T_d = self._T_f32.to(self.device)
+        T_d = self._T_f32
         self.map, stats = _fuse_clean(
             self.map, T_d, tick_dev, rgb_d, raw_m, filt_m, weighting, cfg, True,
             cfg.fx16_clean)
-        self._pred, self._fill, self._dense_dev, self._views = _predict_only(
+        self._pred, self._fill, self._dense_dev, _ = _predict_only(
             self.map, T_d, tick_dev, tick_dev, filt_m, rgb_d, False, cfg)
         self._last_frame = (filt_m, rgb_d)
         self._count_finished, self._count_max_finished = (int(c) for c in read_back(
@@ -858,18 +937,18 @@ class Engine:
         (combinedPredict time=0, maxTime=tick, ElasticFusion.cpp:624-631), so
         the confirming frame has a full prediction to track against."""
         cfg = self.cfg
-        self._T_f32 = torch.from_numpy(self.T_wc.astype(np.float32))
+        self._T_f32 = self._device_pose()
         tick = float(self.tick)
         pred_time = 0.0 if self.last_frame_recovery else tick
-        self._pred, self._fill, self._dense_dev, self._views = _predict_only(
-            self.map, self._T_f32.to(self.device), pred_time, tick, filt_m, rgb_d,
-            self.lost, cfg,
+        self._pred, self._fill, self._dense_dev, _ = _predict_only(
+            self.map, self._T_f32, pred_time, tick, filt_m, rgb_d, self.lost, cfg,
         )
-        if self.ferns is not None:
-            self._codes, self._good = fern_encode_device(
-                self._views[0], self._views[1], *self.ferns.encode_tables())
         if self._so3_hist is None:
             self._so3_hist = _coarse_intensity(rgb_d, cfg)
+
+    def _device_pose(self) -> torch.Tensor:
+        """The host pose as the carried float32 pose on the device."""
+        return torch.from_numpy(self.T_wc.astype(np.float32)).to(self.device)
 
     def _maybe_grow(self):
         """Grow to the next capacity bucket before the tail can overflow,
@@ -905,7 +984,7 @@ class Engine:
             icp_error=self._last_icp_error,
             icp_count=self._last_icp_count,
             fused=self._last_fused,
-            count_dev=None if self.map is None else self.map.count,
+            count_dev=None if self.map is None else self.map.count.clone(),
         )
 
     def _finish(self, rec) -> None:
@@ -921,7 +1000,7 @@ class Engine:
     def _finish_frame(self, rec) -> None:
         cfg = self.cfg
         out = rec["out"]
-        vec = read_back(out["finish_vec"]).astype(np.float64)
+        vec = rec["finish"].get().astype(np.float64)
         self.T_wc = self._fixed_pose(rec, vec[0:16].reshape(4, 4))
         self._last_icp_error = float(vec[16])
         self._last_icp_count = float(vec[17])
@@ -942,8 +1021,7 @@ class Engine:
         if self.local_deformation is None:
             return
         # deformation node sample of this frame's map state (cpp:591-597)
-        self.local_deformation.set_sampled(
-            out["node_pos"], out["node_t"], out["stats"].count)
+        self.local_deformation.set_sampled(out["node_pos"], out["node_t"], out["count"])
         self.global_deformation.sample_graph_from(self.local_deformation)
 
         F = self.ferns.num
@@ -1105,21 +1183,17 @@ class Engine:
 
         filt_m, rgb_d = self._last_frame
         tick_now = float(max(self.tick - 1, rec["tick"]))
-        T_fix32 = torch.from_numpy(T_fix.astype(np.float32))
+        T_fix32 = torch.from_numpy(T_fix.astype(np.float32)).to(self.device)
         T_new = T_fix32 @ self._T_f32
-        dev = self.device
         out = _apply_closure(
-            self.map, graph, T_fix32.to(dev), float(rec["tick"]), T_new.to(dev),
-            tick_now, tick_now, self.lost, filt_m, rgb_d,
-            *self.ferns.encode_tables(), self.cfg, fern_accepted,
+            self.map, graph, T_fix32, float(rec["tick"]), T_new,
+            tick_now, tick_now, self.lost, filt_m, rgb_d, self.cfg, fern_accepted,
         )
         self.map = out["map"]
         self._T_f32 = T_new
         self._pred = out["pred"]
         self._fill = out["fill"]
         self._dense_dev = out["dense"]
-        self._views = out["views"]
-        self._codes, self._good = out["codes"], out["good"]
 
     def _teleport(self, rec, T_rec: np.ndarray) -> None:
         """Lost-mode fern relocalization: jump to the recovery pose and

@@ -92,8 +92,8 @@ def fern_score_device(codes, good, db_codes, db_good, db_times, db_count,
     old = valid & ((tick - db_times) > min_age)
     find_d = torch.where(old, dissim, inf)
     best_id = torch.argmin(find_d)
-    best_d = find_d[best_id]
-    brow = db_codes[best_id]
+    best_d = find_d.min()
+    brow = db_codes.index_select(0, best_id.reshape(1))[0]
     both = (codes != BAD_CODE) & (brow != BAD_CODE)
     block_hd = (((codes == brow) & both).to(f32).sum()
                 / torch.clamp(both.to(f32).sum(), min=1.0))
@@ -176,10 +176,14 @@ class Ferns:
         self._db_codes_dev = None   # [F, num] i32
         self._db_good_dev = None    # [F] f32
         self._db_time_dev = None    # [F] f32
+        self._db_count_dev = None   # 0-d i32
 
     def device_db(self):
-        """(codes [F,num] i32, good [F] f32, times [F] f32, count int) on the
-        device; rows >= count are dead (time +inf never passes the age gate)."""
+        """(codes [F,num] i32, good [F] f32, times [F] f32, count 0-d i32) on
+        the device; rows >= count are dead (time +inf never passes the age
+        gate).  Keyframes are written into these tensors in place, so a
+        captured frame keeps reading the current DB until its capacity
+        grows."""
         if self._db_codes_dev is None:
             F = self.db_capacity
             codes = np.full((F, self.num), BAD_CODE, np.int32)
@@ -192,8 +196,10 @@ class Ferns:
             self._db_codes_dev = torch.from_numpy(codes).to(self.device)
             self._db_good_dev = torch.from_numpy(good).to(self.device)
             self._db_time_dev = torch.from_numpy(times).to(self.device)
+            self._db_count_dev = torch.full(
+                (), min(len(self.frames), F), dtype=torch.int32, device=self.device)
         return (self._db_codes_dev, self._db_good_dev, self._db_time_dev,
-                min(len(self.frames), self.db_capacity))
+                self._db_count_dev)
 
     def _grow_db(self) -> None:
         """Double the device DB's capacity (the reference DB is unbounded)."""
@@ -217,6 +223,7 @@ class Ferns:
             codes.astype(np.int32)).to(self.device)
         self._db_good_dev[idx] = float(good)
         self._db_time_dev[idx] = float(src_time)
+        self._db_count_dev.fill_(min(len(self.frames), self.db_capacity))
 
     def encode_tables(self):
         """Device constants of `fern_encode_device`: (flat pixel index [F]
@@ -352,7 +359,7 @@ class Ferns:
     def _fern_icp(self, fern: FernFrame, vert_s, norm_s):
         """Depth-only ICP of the current view against the keyframe's, from the
         keyframe pose, through the tracker at fern resolution.  Returns
-        (T float64, icp_error, icp_count) from the tracker's host values."""
+        (T float64, icp_error, icp_count), read in one copy."""
         cfg = self.fern_cfg
         dev = self.device
         h, w = self.height, self.width
@@ -369,8 +376,7 @@ class Ferns:
 
         vmaps_c, nmaps_c = pyramid(vert_s, norm_s)
         vm, nm = pyramid(fern.verts, fern.norms)
-        T_fern = torch.from_numpy(np.asarray(fern.T_wc, np.float32))
-        Td = T_fern.to(dev)
+        Td = torch.from_numpy(np.asarray(fern.T_wc, np.float32)).to(dev)
         R, t = Td[:3, :3], Td[:3, 3]
 
         def to_world(v, n):
@@ -389,11 +395,12 @@ class Ferns:
             nmaps_prev_g=tuple(w_[1] for w_ in world),
             last_images=tuple(zeros_img), next_images=tuple(zeros_img),
             last_depths=tuple(zeros_img), next_depths=tuple(zeros_img),
-            so3_last_image=zeros_img[2], T_prev=T_fern,
+            so3_last_image=zeros_img[2], T_prev=Td,
         )
-        host = get_incremental_transformation(inputs, cfg).host
-        return (np.asarray(host.T, np.float64), float(host.icp_error),
-                float(host.icp_count))
+        res = get_incremental_transformation(inputs, cfg)
+        got = read_back(torch.cat([res.T_curr.reshape(-1), res.icp_error[None],
+                                   res.icp_count[None]])).astype(np.float64)
+        return got[:16].reshape(4, 4), float(got[16]), float(got[17])
 
     def _photometric_check(self, vert_s, rgb_s, T_est, fern: FernFrame) -> float:
         """Reprojection colour error at the fern pixels (Ferns.cpp:300-364)."""

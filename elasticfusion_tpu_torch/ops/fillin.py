@@ -17,8 +17,11 @@ from .splat import Prediction
 
 
 def _as_flag(flag, like: torch.Tensor) -> torch.Tensor:
-    """A Python bool or 0-d bool tensor → 0-d bool tensor on `like`'s device."""
-    return torch.as_tensor(flag, dtype=torch.bool, device=like.device)
+    """A Python bool or 0-d bool tensor → 0-d bool tensor on `like`'s device
+    (a Python bool by a fill on the device, never a copy from the host)."""
+    if isinstance(flag, torch.Tensor):
+        return flag.to(device=like.device, dtype=torch.bool)
+    return torch.full((), bool(flag), dtype=torch.bool, device=like.device)
 
 
 def fill_vertex(pred_vertex, depth_filtered_m, cam: CameraConfig, max_depth: float, passthrough):

@@ -3,21 +3,23 @@
 259-571): SO(3) pre-alignment, then a 3-level coarse-to-fine Gauss-Newton on
 the joint ICP + RGB normal equations.
 
-The per-pixel work of every iteration runs on the tensors' device.  The
-reference package's `lax.while_loop`s are Python loops here.  A Gauss-Newton
-iteration on a card is one small upload (pose, K·R·K⁻¹, K·t), three kernel
-launches (`compute_rgb_residual`, `rgb_step`, `icp_step`, each of which builds
-its rows in registers and writes its normal equations straight into its slice
-of one 88-float pack buffer) and ONE read of that buffer
-(`_device.read_back`); the 6×6 solve, the pose update and the exit tests then
-run on the host in float32 with the reference's arithmetic.  An SO(3)
-pre-alignment iteration is likewise one upload (K·R·K⁻¹, K·R), ONE launch
-(`so3_step`, which writes A, b, Σr², count into a 14-float pack buffer) and
-one read.  So a frame costs at most `so3_iterations + sum(gn_iterations) + 1`
-reads here (10 + 19 + 1 by default).
+The whole solve runs on the tensors' device and never reads it back: the
+reference package's `lax.while_loop`s become a fixed sequence of launches.
+Each loop keeps its state in one float32 carry tensor and one int32 `active`
+flag on the device (ops/odometry.py `SO3_CARRY`, `GN_CARRY`).  An SO(3)
+iteration is `so3_step` (which writes A, b, Σr², count into a 14-float pack)
+then `so3_update`; a Gauss-Newton iteration is `compute_rgb_residual`,
+`rgb_step` and `icp_step` (each writing its slice of one 88-float pack) then
+`gn_update`, which solves the 6×6 system, updates the pose, runs the exit
+tests and writes the next iteration's small matrices.  Every step is
+predicated on `active`, so a level runs its whole budget
+(`so3_iterations`, `gn_iterations`) and the iterations after the exit change
+nothing, as the reference's carry after its `cond` fails.  One `gn_update`
+starts the Gauss-Newton carry and one finishes it (sanity clamp,
+orthonormalisation, the covariance gate).
 
-Layout of the pack buffer: `[0:36]` ICP A, `[36:42]` ICP b, `[42]` ICP Σr²,
-`[43]` ICP count, `[44:80]` RGB A, `[80:86]` RGB b, `[86]` Σdiff², `[87]` RGB
+Layout of the pack: `[0:36]` ICP A, `[36:42]` ICP b, `[42]` ICP Σr², `[43]`
+ICP count, `[44:80]` RGB A, `[80:86]` RGB b, `[86]` Σdiff², `[87]` RGB
 count; a half whose term is switched off stays zero.
 """
 
@@ -25,22 +27,42 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional, Tuple
 
-import numpy as np
 import torch
 
-from ._device import read_back
 from .config import CameraConfig, EngineConfig
 from .ops.odometry import (
+    GN_A,
+    GN_B,
+    GN_CARRY,
+    GN_COV_OK,
+    GN_ICP_CNT,
+    GN_ICP_ERR,
+    GN_KRKINV,
+    GN_KT,
+    GN_RGB_CNT,
+    GN_RGB_ERR,
+    GN_TCURR,
+    GN_TOUT,
+    PACK,
+    S3_BASIS,
+    S3_CNT,
+    S3_ERR,
+    S3_KINV,
+    S3_KRLR,
+    SO3_CARRY,
+    SO3_PACK,
+    GNOptions,
     compute_rgb_residual,
+    gn_update,
     icp_prev_table,
     icp_step,
+    level_k,
     project_to_point_cloud,
     rgb_last_table,
     rgb_static_gates,
     rgb_step,
     so3_step,
-    solve_3x3,
-    solve_6x6,
+    so3_update,
 )
 from .ops.preprocess import (
     SOBEL_SCALE,
@@ -55,7 +77,6 @@ from .ops.preprocess import (
     rgb_to_intensity,
     vertices_to_depth,
 )
-from .se3 import _compose, invert, orthonormalize, so3_exp
 
 
 class OdometryInputs(NamedTuple):
@@ -74,17 +95,10 @@ class OdometryInputs(NamedTuple):
     T_prev: torch.Tensor                    # (4,4) f32 world←camera
 
 
-class TrackingHost(NamedTuple):
-    """What the tracker already holds on the host after its last read (numpy
-    float32): gates on a solve read these instead of the device tensors."""
-
-    T: np.ndarray                 # (4,4)
-    icp_error: np.float32
-    icp_count: np.float32
-    A: np.ndarray                 # (6,6)
-
-
 class TrackingResult(NamedTuple):
+    """Every field a tensor on the inputs' device (views of the solve's
+    carries)."""
+
     T_curr: torch.Tensor          # (4,4)
     icp_error: torch.Tensor       # sqrt(Σr²)/inliers  (lastICPError)
     icp_count: torch.Tensor
@@ -94,99 +108,57 @@ class TrackingResult(NamedTuple):
     so3_count: torch.Tensor
     A: torch.Tensor               # (6,6) last combined normal matrix (lastA)
     b: torch.Tensor
-    host: Optional[TrackingHost] = None
-
-
-_F32 = np.float32
-
-
-def _K_mats(cam: CameraConfig, level: int):
-    """(K, K⁻¹) of a pyramid level as host float32 tensors."""
-    c = cam.scaled(level)
-    K = torch.tensor(
-        [[c.fx, 0.0, c.cx], [0.0, c.fy, c.cy], [0.0, 0.0, 1.0]], dtype=torch.float32
-    )
-    Kinv = torch.tensor(
-        [
-            [1.0 / c.fx, 0.0, -c.cx / c.fx],
-            [0.0, 1.0 / c.fy, -c.cy / c.fy],
-            [0.0, 0.0, 1.0],
-        ],
-        dtype=torch.float32,
-    )
-    return K, Kinv
-
-
-def _upload(device, *host_tensors):
-    """Several small host tensors → the device in ONE copy; returns views
-    with the original shapes."""
-    flat = torch.cat([t.reshape(-1) for t in host_tensors]).to(device)
-    out, o = [], 0
-    for t in host_tensors:
-        out.append(flat[o:o + t.numel()].reshape(t.shape))
-        o += t.numel()
-    return out
+    cov_ok: torch.Tensor          # bool: every diag of (A + 1e-12 I)^-1 under
+                                  # cfg.reloc_cov_threshold
 
 
 def _so3_prealign(cam: CameraConfig, last_img: torch.Tensor,
-                  next_img: torch.Tensor, iters: int):
+                  next_img: torch.Tensor, iters: int) -> torch.Tensor:
     """SO(3) pre-alignment loop (RGBDOdometry.cpp:284-369) with the
-    convergence/divergence guards.  Returns (R host (3,3), error, count)."""
+    convergence/divergence guards, `iters` predicated iterations on the
+    device.  Returns the SO(3) carry (ops/odometry.py `S3_*`)."""
     dev = next_img.device
-    K, Kinv = _K_mats(cam, 2)
-    (Kinv_d,) = _upload(dev, Kinv)
-    big = _F32(3.4e38 / 2)
-    # A(9) | b(3) | Σr² | count, overwritten by every iteration's step; the
-    # read at the end of an iteration orders the reuse
-    pack = torch.zeros((14,), dtype=torch.float32, device=dev)
-
-    resultR = torch.eye(3, dtype=torch.float32)
-    lastResultR = resultR
-    lastError, lastCount = big, big
-    so3e, so3c = _F32(0.0), _F32(0.0)
+    k = level_k(cam.scaled(2))
+    carry = torch.empty((SO3_CARRY,), dtype=torch.float32, device=dev)
+    active = torch.empty((1,), dtype=torch.int32, device=dev)
+    pack = torch.zeros((SO3_PACK,), dtype=torch.float32, device=dev)
+    so3_update(0, None, carry, active, k)
+    basis = carry[S3_BASIS:S3_BASIS + 9].view(3, 3)
+    kinv = carry[S3_KINV:S3_KINV + 9].view(3, 3)
+    krlr = carry[S3_KRLR:S3_KRLR + 9].view(3, 3)
     for _ in range(iters):
-        basis_d, krlr_d = _upload(dev, K @ resultR @ Kinv, K @ resultR)
-        so3_step(last_img, next_img, basis_d, Kinv_d, krlr_d, out=pack)
-        got = read_back(pack)
-        A, b = got[0:9].reshape(3, 3), got[9:12]
-        sum_sq, g_count = got[12], got[13]
-        count = max(g_count, _F32(1.0))
-        err = np.sqrt(sum_sq) / count
+        so3_step(last_img, next_img, basis, kinv, krlr, out=pack, active=active)
+        so3_update(1, pack, carry, active, k)
+    return carry
 
-        converged = bool(err < lastError) and bool(lastCount == g_count)
-        diverged = bool(err > lastError + _F32(0.001))
-        done = converged or diverged
 
-        if diverged:
-            next_R, so3e, so3c = lastResultR, lastError, lastCount
-        else:
-            so3e, so3c = err, g_count
-            if converged:
-                next_R = resultR
-            else:
-                delta = torch.from_numpy(solve_3x3(A, b))
-                next_R = so3_exp(delta) @ resultR
-        lastResultR, resultR = resultR, next_R
-        if done:
-            break
-        lastError, lastCount = err, g_count
-    return resultR, so3e, so3c
+def gn_options(cfg: EngineConfig) -> GNOptions:
+    return GNOptions(
+        icp_on=(not cfg.rgb_only) and cfg.icp_weight > 0,
+        rgb_on=cfg.rgb_only or cfg.icp_weight < 100,
+        rgb_only=cfg.rgb_only, icp_weight=float(cfg.icp_weight),
+        early_exit=float(cfg.gn_early_exit), plateau_exit=float(cfg.gn_plateau_exit),
+        translation_sanity=float(cfg.translation_sanity),
+        cov_threshold=float(cfg.reloc_cov_threshold))
 
 
 def get_incremental_transformation(
-    inputs: OdometryInputs, cfg: EngineConfig
+    inputs: OdometryInputs, cfg: EngineConfig,
+    enable: Optional[torch.Tensor] = None,
 ) -> TrackingResult:
     """One full tracking solve.  Mirrors RGBDOdometry.cpp:259-571; see the
-    module docstring for where the work runs.  All results are tensors on the
-    inputs' device."""
+    module docstring for where the work runs.  `enable` (a 0-d bool or int
+    tensor on the device, default on) predicates every iteration: where it
+    is false the solve launches its kernels and they change nothing, the
+    result being the previous pose.  Every result is a tensor on the inputs'
+    device; nothing is read back."""
     cam = cfg.camera
     dev = inputs.vmaps_curr[0].device
-    icp_on = (not cfg.rgb_only) and cfg.icp_weight > 0
-    rgb_on = cfg.rgb_only or cfg.icp_weight < 100
-
-    T_prev = torch.from_numpy(read_back(inputs.T_prev).astype(np.float32))
-    (T_prev_d,) = _upload(dev, T_prev)
-    Rprev, tprev = T_prev[:3, :3], T_prev[:3, 3]
+    o = gn_options(cfg)
+    icp_on, rgb_on = o.icp_on, o.rgb_on
+    T_prev = inputs.T_prev.to(device=dev, dtype=torch.float32).contiguous()
+    if enable is not None:
+        enable = enable.to(torch.int32).reshape(1)
 
     n_lvls = cfg.num_pyramid_levels
     if rgb_on:
@@ -196,40 +168,35 @@ def get_incremental_transformation(
                   for img in inputs.next_images]
 
     # --- SO(3) pre-alignment at the coarsest level (cpp:284-369) ---
-    if cfg.so3:
-        resultR, so3e, so3c = _so3_prealign(
-            cam, inputs.so3_last_image, inputs.next_images[2], cfg.so3_iterations
-        )
-    else:
-        resultR = torch.eye(3, dtype=torch.float32)
-        so3e = so3c = _F32(0.0)
-
-    resultRt = torch.eye(4, dtype=torch.float32)
-    resultRt[:3, :3] = resultR
+    so3 = (_so3_prealign(cam, inputs.so3_last_image, inputs.next_images[2],
+                         cfg.so3_iterations) if cfg.so3 else None)
 
     iters = list(cfg.fast_odom_iterations if cfg.fast_odom else cfg.gn_iterations)
     if not cfg.pyramid:
         iters[1] = iters[2] = 0
+    # the iterations in order, each with its level
+    schedule = [lvl for lvl in range(n_lvls - 1, -1, -1) for _ in range(iters[lvl])]
+    ks = [level_k(cam.scaled(lvl)) for lvl in range(n_lvls)]
 
-    carry = dict(
-        resultRt=resultRt, Rcurr=Rprev, tcurr=tprev,
-        icp_error=_F32(0.0), icp_count=_F32(0.0),
-        rgb_error=_F32(0.0), rgb_count=_F32(0.0),
-        A=np.zeros((6, 6), np.float32), b=np.zeros((6,), np.float32),
-    )
-    # every step overwrites its slice in every iteration; the read at the end
-    # of an iteration orders the reuse
-    pack = torch.zeros((88,), dtype=torch.float32, device=dev)
+    carry = torch.empty((GN_CARRY,), dtype=torch.float32, device=dev)
+    active = torch.empty((1,), dtype=torch.int32, device=dev)
+    # every step overwrites its slice of the pack while active
+    pack = torch.zeros((PACK,), dtype=torch.float32, device=dev)
+    gn_update(0, None, carry, active, T_prev, so3, enable,
+              ks[schedule[0] if schedule else 0], o)
+    T_curr = carry[GN_TCURR:GN_TCURR + 16].view(4, 4)
+    krkinv = carry[GN_KRKINV:GN_KRKINV + 9].view(3, 3)
+    kt = carry[GN_KT:GN_KT + 3]
     # rgbOnly weighs every pixel evenly (sigma = -1); otherwise rgb_step derives
     # sigma from what compute_rgb_residual counted
     sigma_arg = (torch.full((), -1.0, dtype=torch.float32, device=dev)
                  if cfg.rgb_only else None)
 
+    j = 0
     for lvl in range(n_lvls - 1, -1, -1):
         if iters[lvl] == 0:
             continue
         c = cam.scaled(lvl)
-        K, Kinv = _K_mats(cam, lvl)
         cloud = (
             project_to_point_cloud(inputs.last_depths[lvl], c.fx, c.fy, c.cx, c.cy)
             if rgb_on else None
@@ -254,115 +221,46 @@ def get_incremental_transformation(
             if rgb_on else None
         )
 
-        # per-level divergence reference (cpp:406: reset to FLT_MAX)
-        rgb_err_break = _F32(3.4e38)
-        prev_err = _F32(3.4e38)
-
         for _ in range(iters[lvl]):
-            Rt = invert(carry["resultRt"])
-            T_curr = _compose(carry["Rcurr"], carry["tcurr"])
-            T_curr_d, krkinv_d, kt_d = _upload(
-                dev, T_curr, K @ Rt[:3, :3] @ Kinv, K @ Rt[:3, 3])
-
             if rgb_on:
                 corres = compute_rgb_residual(
                     min_grad2, dIdx, dIdy,
                     inputs.last_depths[lvl], inputs.next_depths[lvl],
                     inputs.last_images[lvl], inputs.next_images[lvl],
-                    kt_d, krkinv_d,
+                    kt, krkinv,
                     last_table=last_table, static_gates=static_gates,
-                    out=pack[86:88],
+                    out=pack[86:88], active=active,
                 )
                 rgb_step(corres, sigma_arg, cloud, c.fx, c.fy, dIdx, dIdy,
-                         out=pack[44:86])
-
+                         out=pack[44:86], active=active)
             if icp_on:
                 icp_step(
-                    T_curr_d,
+                    T_curr,
                     inputs.vmaps_curr[lvl], inputs.nmaps_curr[lvl],
-                    T_prev_d,
+                    T_prev,
                     inputs.vmaps_prev_g[lvl], inputs.nmaps_prev_g[lvl],
                     c.fx, c.fy, c.cx, c.cy,
                     cfg.dist_threshold, cfg.angle_threshold_sin,
-                    prev_table=prev_table, out=pack[0:44],
+                    prev_table=prev_table, out=pack[0:44], active=active,
                 )
+            j += 1
+            last = j == len(schedule) or schedule[j] != lvl
+            gn_update(1, pack, carry, active, T_prev, None, None,
+                      ks[schedule[j] if j < len(schedule) else lvl], o,
+                      last_of_level=last)
 
-            # the iteration's one device→host read
-            got = read_back(pack)
-            Ai, bi = got[0:36].reshape(6, 6), got[36:42]
-            icp_sum_sq, icp_count = got[42], got[43]
-            Ar, br = got[44:80].reshape(6, 6), got[80:86]
-            sigma_h, rgb_size = got[86], got[87]
-
-            rgb_error = (np.sqrt(sigma_h) / (rgb_size if rgb_size != 0 else _F32(1.0))
-                         if rgb_on else _F32(0.0))
-            icp_error = (np.sqrt(icp_sum_sq) / max(icp_count, _F32(1.0))
-                         if icp_on else _F32(0.0))
-
-            # rgbOnly divergence break (cpp:448-451): REVERT to the pre-update
-            # state.  Distinct from the convergence exits below, which keep
-            # this iteration's freshly computed stats and update.
-            if cfg.rgb_only and rgb_error > rgb_err_break:
-                break
-
-            if icp_on and rgb_on:
-                w = _F32(cfg.icp_weight)
-                A = Ar + (w * w) * Ai
-                b = br + w * bi
-            elif icp_on:
-                A, b = Ai, bi
-            else:
-                A, b = Ar, br
-
-            result = solve_6x6(A, b)
-            total_err = icp_error + rgb_error
-            stop = bool(np.linalg.norm(result) < cfg.gn_early_exit)
-            if cfg.gn_plateau_exit > 0:
-                stop = stop or bool(
-                    abs(total_err - prev_err)
-                    < cfg.gn_plateau_exit * max(total_err, _F32(1e-12)))
-
-            # computeUpdateSE3 (OdometryProvider.h:73-96): left-multiply
-            res_t = torch.from_numpy(result)
-            Rt_up = _compose(so3_exp(res_t[3:6]), res_t[:3])
-            new_resultRt = Rt_up @ carry["resultRt"]
-            # currentT = prevT * rgbOdom⁻¹ (cpp:553-560)
-            currentT = T_prev @ invert(new_resultRt)
-
-            carry = dict(
-                resultRt=new_resultRt,
-                Rcurr=currentT[:3, :3], tcurr=currentT[:3, 3],
-                icp_error=icp_error, icp_count=icp_count,
-                rgb_error=rgb_error, rgb_count=rgb_size,
-                A=A.astype(np.float32), b=b.astype(np.float32),
-            )
-            rgb_err_break = rgb_error
-            prev_err = total_err
-            if stop:
-                break
-
-    Rcurr, tcurr = carry["Rcurr"], carry["tcurr"]
-
-    # sanity clamp — unconditional in the original (cpp:553-558)
-    if float(torch.linalg.vector_norm(tcurr - tprev)) > cfg.translation_sanity:
-        Rcurr, tcurr = Rprev, tprev
-
-    T_curr = orthonormalize(_compose(Rcurr, tcurr))
-
-    stats = torch.tensor(
-        [carry["icp_error"], carry["icp_count"], carry["rgb_error"],
-         carry["rgb_count"], so3e, so3c], dtype=torch.float32)
-    T_d, stats_d, A_d, b_d = _upload(
-        dev, T_curr, stats, torch.from_numpy(carry["A"]),
-        torch.from_numpy(carry["b"]))
+    gn_update(2, None, carry, active, T_prev, None, None, ks[0], o)
+    if so3 is not None:
+        so3e, so3c = so3[S3_ERR], so3[S3_CNT]
+    else:
+        so3e = so3c = torch.zeros((), dtype=torch.float32, device=dev)
     return TrackingResult(
-        T_curr=T_d,
-        icp_error=stats_d[0], icp_count=stats_d[1],
-        rgb_error=stats_d[2], rgb_count=stats_d[3],
-        so3_error=stats_d[4], so3_count=stats_d[5],
-        A=A_d, b=b_d,
-        host=TrackingHost(T=T_curr.numpy(), icp_error=carry["icp_error"],
-                          icp_count=carry["icp_count"], A=carry["A"]),
+        T_curr=carry[GN_TOUT:GN_TOUT + 16].view(4, 4),
+        icp_error=carry[GN_ICP_ERR], icp_count=carry[GN_ICP_CNT],
+        rgb_error=carry[GN_RGB_ERR], rgb_count=carry[GN_RGB_CNT],
+        so3_error=so3e, so3_count=so3c,
+        A=carry[GN_A:GN_A + 36].view(6, 6), b=carry[GN_B:GN_B + 6],
+        cov_ok=carry[GN_COV_OK] != 0,
     )
 
 

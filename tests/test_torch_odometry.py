@@ -238,18 +238,18 @@ def test_so3_step_fills_the_pack_in_the_tracker_s_layout(world):
 
 def test_small_solves_match_reference(world):
     w = world
-    x6 = port_odo.solve_6x6(w["A6"], w["b6"])
-    x3 = port_odo.solve_3x3(w["A3"], w["b3"])
-    assert x6.dtype == np.float32 and x3.dtype == np.float32
+    x6 = port_odo.solve_6x6(tt(w["A6"]), tt(w["b6"]))
+    x3 = port_odo.solve_3x3(tt(w["A3"]), tt(w["b3"]))
+    assert x6.dtype == torch.float32 and x3.dtype == torch.float32
     # the same unrolled float32 arithmetic; rsqrt may differ in its last bit
-    np.testing.assert_allclose(x6, np.asarray(w["ref"]["solve6"]), rtol=2e-5, atol=1e-7)
-    np.testing.assert_allclose(x3, np.asarray(w["ref"]["solve3"]), rtol=2e-5, atol=1e-7)
-    np.testing.assert_allclose(w["A6"].astype(np.float64) @ x6, w["b6"], atol=1e-3)
+    np.testing.assert_allclose(nn(x6), np.asarray(w["ref"]["solve6"]), rtol=2e-5, atol=1e-7)
+    np.testing.assert_allclose(nn(x3), np.asarray(w["ref"]["solve3"]), rtol=2e-5, atol=1e-7)
+    np.testing.assert_allclose(w["A6"].astype(np.float64) @ nn(x6), w["b6"], atol=1e-3)
 
 
 def test_solve_6x6_survives_an_empty_frame():
     """No valid pixel: A = 0, b = 0 — the damping keeps the solve finite."""
-    x = port_odo.solve_6x6(np.zeros((6, 6), np.float32), np.zeros(6, np.float32))
+    x = nn(port_odo.solve_6x6(torch.zeros((6, 6)), torch.zeros(6)))
     assert np.isfinite(x).all() and np.abs(x).max() == 0.0
 
 
@@ -272,32 +272,41 @@ def test_tracking_solve_matches_reference(world):
     assert got.A.shape == (6, 6) and got.b.shape == (6,)
 
 
+def _count_updates(monkeypatch):
+    """Count the tracker's update launches (plain versions on the CPU)."""
+    calls = {"so3_update": [], "gn_update": []}
+    for name in calls:
+        real = getattr(port_tracking, name)
+        monkeypatch.setattr(port_tracking, name,
+                            lambda *a, _n=name, _r=real, **k: (calls[_n].append(a[0]),
+                                                               _r(*a, **k))[1])
+    return calls
+
+
 def test_tracking_reads_back_once_per_iteration(world, monkeypatch):
-    """The Python loops read the device at most once per iteration (plus the
-    previous pose): counted through the one function that reads."""
-    calls = []
-    real = port_tracking.read_back
-    monkeypatch.setattr(port_tracking, "read_back",
-                        lambda t: (calls.append(t.numel()), real(t))[1])
+    """The solve reads nothing back: its loops are fixed sequences of
+    updates on the device — one SO(3) start and one update per SO(3)
+    iteration of the budget, one Gauss-Newton start, one update per
+    iteration of the (10, 5, 4) budget and one finish."""
+    calls = _count_updates(monkeypatch)
     cfg = world["port_cfg"]
+    reads0 = _device.read_calls
     port_tracking.get_incremental_transformation(world["inputs"], cfg)
-    budget = cfg.so3_iterations + sum(cfg.gn_iterations) + 1
-    assert 4 <= len(calls) <= budget
-    assert max(calls) <= 88          # two packed 44-float normal-equation blocks
+    assert _device.read_calls == reads0
+    assert calls["so3_update"] == [0] + [1] * cfg.so3_iterations
+    assert calls["gn_update"] == [0] + [1] * sum(cfg.gn_iterations) + [2]
 
 
 def test_tracking_raises_for_unported_tables(world, monkeypatch):
     """`fx16_tables` once raised here; the tracker now runs on the u16
-    fixed-point model tables, reads back at most once per iteration as on
-    the float32 ones, and lands within 5 mm of the rendered pose
+    fixed-point model tables, reads nothing back and runs the whole
+    iteration budget as on the float32 ones, and lands within 5 mm of the
+    rendered pose
     (tests/test_torch_fx16_tables.py holds it against the reference)."""
-    calls = []
-    real = port_tracking.read_back
-    monkeypatch.setattr(port_tracking, "read_back",
-                        lambda t: (calls.append(t.numel()), real(t))[1])
+    calls = _count_updates(monkeypatch)
     cfg = world["port_cfg"].with_(fx16_tables=True)
+    reads0 = _device.read_calls
     got = port_tracking.get_incremental_transformation(world["inputs"], cfg)
-    budget = cfg.so3_iterations + sum(cfg.gn_iterations) + 1
-    assert 4 <= len(calls) <= budget
-    assert max(calls) <= 88
+    assert _device.read_calls == reads0
+    assert len(calls["gn_update"]) == sum(cfg.gn_iterations) + 2
     assert np.linalg.norm(nn(got.T_curr)[:3, 3] - T_NEXT[:3, 3]) < 5e-3

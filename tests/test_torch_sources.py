@@ -114,9 +114,12 @@ WRAPPERS = [(m, *call) for m in WRAPPER_MODULES for call in _kernel_function_cal
 
 
 def test_the_port_has_seven_kernel_wrappers():
+    """Seven kernels of the Pallas sites' paths, and the two tracker
+    updates (csrc/tracker_update.cu) that keep the tracker's loops on the
+    card."""
     assert sorted(w[1] for w in WRAPPERS) == [
-        "compute_rgb_residual", "fuse_window", "gram_outer", "icp_step",
-        "rgb_step", "so3_step", "splat_resolve"]
+        "compute_rgb_residual", "fuse_window", "gn_update", "gram_outer",
+        "icp_step", "rgb_step", "so3_step", "so3_update", "splat_resolve"]
 
 
 @pytest.mark.parametrize("name", sorted(_build.SOURCES))
@@ -183,6 +186,13 @@ def _meta_calls():
             corres, None, _meta(3, H, W), 5.0, 5.0, _meta(H, W), _meta(H, W)),
         "so3_step": lambda: odometry_mod.so3_step(
             _meta(H, W), _meta(H, W), _meta(3, 3), _meta(3, 3), _meta(3, 3)),
+        "so3_update": lambda: odometry_mod.so3_update(
+            1, _meta(14), _meta(odometry_mod.SO3_CARRY), _meta(1, dtype=torch.int32),
+            odometry_mod.LevelK(*([1.0] * 8))),
+        "gn_update": lambda: odometry_mod.gn_update(
+            1, _meta(88), _meta(odometry_mod.GN_CARRY), _meta(1, dtype=torch.int32),
+            _meta(4, 4), None, None, odometry_mod.LevelK(*([1.0] * 8)),
+            odometry_mod.GNOptions(True, True, False, 10.0, 3e-4, 0.0, 0.3, 1e-4)),
     }
 
 
