@@ -57,7 +57,7 @@ def rot_err(Ta: np.ndarray, Tb: np.ndarray) -> float:
     return float(2.0 * np.arcsin(min(chord, 1.0)))
 
 
-def run_reference_child(func: str, out_path, *args: str, timeout: float = 1200.0,
+def run_reference_child(func: str, out_path, *args: str, timeout: float,
                         cpu_devices: int = 1):
     """Run `tests/<module>.py::<function>(out_path, *args)` of the reference
     package in a child interpreter and load the `.npz`/pickle it writes
@@ -70,7 +70,9 @@ def run_reference_child(func: str, out_path, *args: str, timeout: float = 1200.0
     child for every compile, such a run takes many minutes.  The child
     compiles in its own process instead, which keeps the suite just as safe
     from an XLA:CPU crash (it ends the child, and the run is tried once
-    more) at the cost of one interpreter start."""
+    more) at the cost of one interpreter start.  Each caller sets `timeout`
+    to about 1.5x the slowest reading of its child within a whole tier-1
+    run: a child that hangs fails its own test, not the run."""
     import pickle
     import subprocess
     import sys
@@ -117,14 +119,17 @@ class ReferenceChild:
     """`run_reference_child` started in the background: the test process
     runs the port while the child compiles and runs the reference, and
     `result()` waits for it (a child killed by a signal is run once more, in
-    the foreground)."""
+    the foreground).  `timeout` counts from the start; a child still running
+    then is killed and its test fails."""
 
-    def __init__(self, func: str, out_path, *args: str, timeout: float = 1200.0,
+    def __init__(self, func: str, out_path, *args: str, timeout: float,
                  cpu_devices: int = 1):
         import subprocess
         import sys
+        import time
 
         self._call = (func, out_path, args, timeout, cpu_devices)
+        self._deadline = time.monotonic() + timeout
         code, env, cwd = _child_command(func, cpu_devices)
         # a file, not a pipe: nobody reads the child's stderr while it runs
         self._err = open(str(out_path) + ".stderr", "w+")
@@ -134,9 +139,15 @@ class ReferenceChild:
 
     def result(self):
         import pickle
+        import subprocess
+        import time
 
         func, out_path, args, timeout, cpu_devices = self._call
-        self._proc.wait(timeout=timeout)
+        try:
+            self._proc.wait(timeout=max(self._deadline - time.monotonic(), 0.0))
+        except subprocess.TimeoutExpired:
+            self.kill()
+            raise
         self._err.seek(0)
         err = self._err.read()
         self._err.close()
@@ -147,3 +158,11 @@ class ReferenceChild:
             raise RuntimeError(f"reference run {func} failed:\n{err[-4000:]}")
         return run_reference_child(func, out_path, *args, timeout=timeout,
                                    cpu_devices=cpu_devices)
+
+    def kill(self):
+        """End the child if it still runs (a no-op once `result()` has
+        returned)."""
+        if self._proc.poll() is None:
+            self._proc.kill()
+            self._proc.wait()
+        self._err.close()

@@ -120,7 +120,8 @@ def runs(tmp_path_factory):
         closing.process_frame(r, d, timestamp=ts)
     save_checkpoint(tmp / "port_closure.npz", closing)
     child = ReferenceChild("test_torch_checkpoint:reference_checkpoints", tmp / "ref.pkl",
-                           str(tmp / "port_closure.npz"), str(tmp / "ref.npz"))
+                           str(tmp / "port_closure.npz"), str(tmp / "ref.npz"),
+                           timeout=150.0)
     # tests/test_checkpoint.py:13-44 within the port
     frames = _sweep(9)
     eng = _port(**ROUND_TRIP)

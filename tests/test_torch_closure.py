@@ -26,11 +26,11 @@ import torch
 
 from _torch_parity import (
     SMALL_CAM,
+    ReferenceChild,
     both_cams,
     frac_differing,
     nn,
     rot_err,
-    run_reference_child,
     tt,
 )
 from elasticfusion_tpu.config import EngineConfig as RefConfig
@@ -53,6 +53,9 @@ SCENARIOS = {
                      fern_min_age=3, fern_inlier_count=100, lost_inlier_relax=50,
                      fern_threshold=0.12, fern_icp_error=2e-3, pipeline_depth=0),
 }
+# seconds each scenario's reference child may take: about 1.5x the slowest
+# reading of it within a whole tier-1 run on an 8-core CPU
+REF_TIMEOUT = {"local": 1400.0, "teleport": 1010.0}
 
 
 def _cams(scale=1):
@@ -109,12 +112,11 @@ def _first_state(eng):
                 dense=float(eng._dense_dev), so3=np.asarray(eng._so3_hist))
 
 
-def reference_engines(out_path):
-    """Both scenarios through the reference `Engine` (run in a child
-    interpreter by `run_reference_child`: the closure decisions go through
-    un-jitted JAX), and the inputs and result of the first two
-    model-to-model solves that found inliers."""
-    out = {}
+def reference_engines(out_path, name):
+    """One scenario through the reference `Engine` (run in a child
+    interpreter by `ReferenceChild`: the closure decisions go through
+    un-jitted JAX) and the inputs and result of its first two model-to-model
+    solves that found inliers; for `local`, the extras on the first of them."""
     ref_cam, _ = both_cams(SMALL_CAM)
     m2m = []
     finish = RefEngine._finish
@@ -127,14 +129,13 @@ def reference_engines(out_path):
                             T=np.asarray(o["T"]), m2m=host(o["m2m"])))
         return finish(self, rec)
     RefEngine._finish = keep_m2m
-    for name, kw in SCENARIOS.items():
-        frames, stop_from = _frames(name)
-        eng = RefEngine(RefConfig(camera=ref_cam, **kw))
-        first = {}
-        run = _drive(eng, frames, stop_from, lambda e: first.update(_first_state(e)))
-        out[name] = dict(run, first=first)
-    out["m2m"] = m2m
-    out["extras"] = _reference_extras(m2m[0], RefConfig(camera=ref_cam, **SCENARIOS["local"]))
+    frames, stop_from = _frames(name)
+    eng = RefEngine(RefConfig(camera=ref_cam, **SCENARIOS[name]))
+    first = {}
+    out = _drive(eng, frames, stop_from, lambda e: first.update(_first_state(e)))
+    out.update(first=first, m2m=m2m)
+    if name == "local" and m2m:
+        out["extras"] = _reference_extras(m2m[0], RefConfig(camera=ref_cam, **SCENARIOS[name]))
     with open(out_path, "wb") as f:
         pickle.dump(out, f)
 
@@ -163,15 +164,27 @@ def _reference_extras(c, cfg):
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    ref = run_reference_child("test_torch_closure:reference_engines",
-                              tmp_path_factory.mktemp("ref") / "engines.pkl")
-    port = {}
-    for name, kw in SCENARIOS.items():
-        frames, stop_from = _frames(name)
-        eng = port_engine.Engine(PortConfig(camera=PortCam(**SMALL_CAM), **kw), device="cpu")
-        first = {}
-        port[name] = _drive(eng, frames, stop_from, lambda e: first.update(_first_state(e)))
-        port[name].update(engine=eng, first=first)
+    tmp = tmp_path_factory.mktemp("ref")
+    # one child a scenario, side by side and beside the port: each scenario's
+    # configuration compiles its own frame programs, so a child that ran both
+    # would compile no less and take their sum
+    children = {name: ReferenceChild("test_torch_closure:reference_engines",
+                                     tmp / f"{name}.pkl", name, timeout=REF_TIMEOUT[name])
+                for name in SCENARIOS}
+    try:
+        port = {}
+        for name, kw in SCENARIOS.items():
+            frames, stop_from = _frames(name)
+            eng = port_engine.Engine(PortConfig(camera=PortCam(**SMALL_CAM), **kw), device="cpu")
+            first = {}
+            port[name] = _drive(eng, frames, stop_from, lambda e: first.update(_first_state(e)))
+            port[name].update(engine=eng, first=first)
+        ref = {name: child.result() for name, child in children.items()}
+    finally:
+        for child in children.values():
+            child.kill()
+    ref["m2m"] = [c for name in SCENARIOS for c in ref[name]["m2m"]][:2]
+    ref["extras"] = ref["local"]["extras"]
     return ref, port
 
 

@@ -269,7 +269,8 @@ def reference_constrain(out_path):
 @pytest.fixture(scope="module")
 def constrained(tmp_path_factory):
     ref_out = run_reference_child("test_torch_deformation:reference_constrain",
-                                  tmp_path_factory.mktemp("ref") / "constrain.pkl")
+                                  tmp_path_factory.mktemp("ref") / "constrain.pkl",
+                                  timeout=60.0)
     inputs = _constrain_inputs()
     port_out = _run_constrain(port_def, convert.graph_state_to_numpy, *inputs,
                               device="cpu")

@@ -179,11 +179,11 @@ def test_two_gloo_processes_are_the_one_process_mesh_run(tmp_path):
         cwd=str(REPO), env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True) for r in (0, 1)]
     one = subprocess.run(base + ["-o", str(tmp_path / "one")], cwd=str(REPO), env=env,
-                         capture_output=True, text=True, timeout=240)
+                         capture_output=True, text=True, timeout=120)
     outs = []
     for r, p in enumerate(procs):
         try:
-            out, _ = p.communicate(timeout=240)
+            out, _ = p.communicate(timeout=120)
         except subprocess.TimeoutExpired:
             for q in procs:
                 q.kill()

@@ -86,7 +86,8 @@ def reference_runs(out_path):
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     child = ReferenceChild("test_torch_external_pose:reference_runs",
-                           tmp_path_factory.mktemp("ref") / "external.pkl")
+                           tmp_path_factory.mktemp("ref") / "external.pkl",
+                           timeout=230.0)
     ref = child.result()
     port, tracked = {}, []
     real = port_engine.get_incremental_transformation

@@ -71,7 +71,8 @@ def reference_flow(out_path):
 @pytest.fixture(scope="module")
 def flows(tmp_path_factory):
     ref = run_reference_child("test_torch_ferns:reference_flow",
-                              tmp_path_factory.mktemp("ref") / "ferns.pkl")
+                              tmp_path_factory.mktemp("ref") / "ferns.pkl",
+                              timeout=60.0)
     port = port_ferns.Ferns(PortConfig(camera=both_cams(SMALL_CAM)[1], **FERN_CFG), "cpu")
     return ref, port, _flow(port, ref["views"])
 

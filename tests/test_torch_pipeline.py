@@ -89,7 +89,8 @@ def _port(depth, **kw):
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     child = ReferenceChild("test_torch_pipeline:reference_depth2",
-                           tmp_path_factory.mktemp("ref") / "depth2.pkl")
+                           tmp_path_factory.mktemp("ref") / "depth2.pkl",
+                           timeout=1390.0)
     frames = _there_back()
     out = {}
     # depth 0, checking before every finish that the pose the next frame was

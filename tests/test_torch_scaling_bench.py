@@ -97,7 +97,7 @@ def runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("scaling")
     child = ReferenceChild("test_torch_scaling_bench:reference_shard_leg",
                            tmp / "ref.pkl", str(N), str(CAP_LOG2), str(FRAMES),
-                           cpu_devices=N)
+                           timeout=280.0, cpu_devices=N)
     kept = {}
 
     def keep(fn, key):

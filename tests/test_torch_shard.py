@@ -147,7 +147,7 @@ def reference_predictions(out_path):
 def world(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("shard")
     child = ReferenceChild("test_torch_shard:reference_predictions", tmp / "ref.pkl",
-                           cpu_devices=8)
+                           timeout=210.0, cpu_devices=8)
     _, port_cam = both_cams(SMALL_CAM)
     poses, rendered = _sweep(port_cam)
     return dict(child=child, cam=port_cam, poses=poses, rendered=rendered, runs={})

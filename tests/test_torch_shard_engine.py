@@ -82,7 +82,7 @@ def reference_mesh_engine(out_path):
 def child(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("shard_engine")
     return ReferenceChild("test_torch_shard_engine:reference_mesh_engine",
-                          tmp / "ref.pkl", cpu_devices=8)
+                          tmp / "ref.pkl", timeout=450.0, cpu_devices=8)
 
 
 def _local_frames(cam):
