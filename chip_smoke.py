@@ -13,7 +13,7 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
   3. every kernel against its plain PyTorch version on the card, at the shapes
      the main path gives it, then its time, the plain version's time, the
      time of the one library call that computes the same (where there is one)
-     and its bound from bytes and operations.  The nine kernels:
+     and its bound from bytes and operations.  The ten kernels:
      `gram_outer` (off the main path since the SO(3) step is fused; held at
      the two shapes it had), the fused tracking steps `icp_step`,
      `rgb_residual`, `rgb_step` (at all three pyramid levels, on the tensors
@@ -24,7 +24,11 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      steps with their `active` flag 0 (nothing written, tickets at 0); and
      `icp_step` on the u16 fixed-point model table (`fx16_tables`) at the
      three levels of a frame tracked with it, its decoded values against the
-     plain version's;
+     plain version's; and the port-only `bilateral` filter, bit-identical to
+     its plain version on every frame of one period of the benchmark's
+     `scan` traffic and on edge cases (zeros, the depth gates, a step, an
+     odd size, radius 3), timed beside its plain version eager and replayed
+     as a CUDA graph (the plain stencil's device time on the main path);
   4. the main path: `Engine.process_frame` over 6 warm-up + 30 frames of the
      640x480 synthetic sweep (replayed as CUDA graphs), twice, the first
      under torch.profiler: every kernel's launches on the card counted by
@@ -121,6 +125,10 @@ from elasticfusion_tpu_torch.config import CameraConfig, EngineConfig  # noqa: E
 from elasticfusion_tpu_torch.engine import Engine  # noqa: E402
 from elasticfusion_tpu_torch.ops import fuse as fuse_ops  # noqa: E402
 from elasticfusion_tpu_torch.ops import splat as splat_ops  # noqa: E402
+from elasticfusion_tpu_torch.ops.bilateral import (  # noqa: E402
+    bilateral_filter,
+    bilateral_filter_plain,
+)
 from elasticfusion_tpu_torch.ops.fuse_window import (  # noqa: E402
     fuse_window,
     fuse_window_plain,
@@ -946,6 +954,7 @@ def phase_kernels(cam, frames, ptxas):
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         bytes=34 * HW * 4, ptxas=k3_ptxas,
     )
+    check_bilateral(cam, entries)
     for e in entries.values():
         for tag, lv in e.get("levels", {"": e}).items():
             print(f"  {e['name']} {tag}: kernel {lv['ms']:.4f} ms, plain "
@@ -956,10 +965,128 @@ def phase_kernels(cam, frames, ptxas):
     return entries
 
 
+def scan_frames(cam: CameraConfig):
+    """The depth images of one period of the benchmark's `scan` traffic
+    (`efbench/traffic/scan.json`, rendered by its generator on the card)."""
+    from efbench import scene as scan_scene
+
+    with open("efbench/traffic/scan.json", encoding="utf-8") as f:
+        traffic = json.load(f)
+    frames, _ = scan_scene.render_period(traffic, cam, DEV)
+    return [torch.from_numpy(d.astype(np.float32)).to(DEV) for d, _ in frames]
+
+
+def bilateral_cases(scan, max_depth: float) -> list:
+    """(what, depth image, radius) of the bilateral filter's edge cases."""
+    H, W = scan[0].shape
+    gen = torch.Generator(device=DEV).manual_seed(13)
+    max_mm = max_depth * 1000.0
+
+    def uniform(h, w, lo, hi):
+        return lo + (hi - lo) * torch.rand((h, w), generator=gen, device=DEV)
+
+    # values at both gates: whole mm as the sensor gives, and fractions
+    gates = torch.tensor([0.0, 298.0, 299.0, 299.5, 299.99, 300.0, 300.5, 301.0,
+                          max_mm - 1.0, max_mm - 0.01, max_mm, max_mm + 0.01,
+                          max_mm + 1.0, 65535.0], device=DEV)
+    at_gates = gates[torch.randint(0, len(gates), (H, W), generator=gen, device=DEV)]
+    cols = torch.arange(W, device=DEV)[None, :].expand(H, W)
+    step = torch.where(cols < W // 2, 1000.0, 1060.0) + uniform(H, W, 0.0, 3.0).round()
+    step[:, W // 2 + 40:] = 3000.0
+    bright_borders = uniform(H, W, 500.0, 1500.0).round()
+    for edge in (bright_borders[:2], bright_borders[-2:], bright_borders[:, :2],
+                 bright_borders[:, -2:]):
+        edge.fill_(4000.0)
+    return [
+        ("zeros", torch.zeros((H, W), device=DEV), 6),
+        ("values at the 300 mm and max-depth gates", at_gates, 6),
+        ("depth steps of 60 mm and 1.94 m", step, 6),
+        ("bright rows and columns at all four borders", bright_borders, 6),
+        ("random 161x121", uniform(121, 161, 250.0, 8000.0).round(), 6),
+        ("random 161x121 in fractions of a mm", uniform(121, 161, 250.0, 8000.0), 6),
+        ("a scan frame at radius 3", scan[0], 3),
+        ("random 161x121 at radius 3", uniform(121, 161, 250.0, 8000.0).round(), 3),
+        ("a 102x70 crop of a scan frame (not contiguous)", scan[7][205:275, 268:370], 6),
+    ]
+
+
+def inside_taps(n: int, r: int) -> int:
+    """Taps of a (2r+1)-wide window inside a row of n pixels, summed over
+    the row."""
+    return sum(min(r, n - 1 - i) - max(-r, -i) + 1 for i in range(n))
+
+
+def check_bilateral(cam, entries) -> None:
+    """The bilateral filter against its plain version, bit for bit, on every
+    frame of one `scan` period and on the edge cases; its time eager and the
+    plain stencil's, eager and replayed as a CUDA graph."""
+    cfg = engine_config(cam)
+    max_depth, radius = cfg.max_depth_processed, cfg.bilateral_radius
+    scan = scan_frames(cam)
+    bilateral_filter.launches = 0
+    differing = []
+    for i, d in enumerate(scan):
+        got = bilateral_filter(d, max_depth, radius)
+        plain = bilateral_filter_plain(d, max_depth, radius)
+        n_bad = int((got != plain).sum())
+        if n_bad:
+            differing.append((i, n_bad, float((got - plain).abs().max())))
+    torch.cuda.synchronize()
+    check(not differing and bilateral_filter.launches == len(scan),
+          f"bilateral: {len(scan)} scan frames {tuple(scan[0].shape)} at radius {radius} "
+          f"bit-identical to the plain version ({bilateral_filter.launches} launches; "
+          f"differing (frame, pixels, max |err|): {differing[:5]})")
+    filt = bilateral_filter(scan[0], max_depth, radius)
+    check(int((filt > 0).sum()) > 0.5 * filt.numel()
+          and int((filt != scan[0]).sum()) > 0.1 * filt.numel(),
+          f"bilateral: the scan frame's filtered depth is dense ({int((filt > 0).sum())} "
+          f"pixels) and smoothed ({int((filt != scan[0]).sum())} pixels changed)")
+    for what, d, r in bilateral_cases(scan, max_depth):
+        got = bilateral_filter(d, max_depth, r)
+        plain = bilateral_filter_plain(d, max_depth, r)
+        torch.cuda.synchronize()
+        check(torch.equal(got, plain),
+              f"bilateral on {what} (radius {r}) bit-identical to the plain version "
+              f"({int((got != plain).sum())} pixels differ, {int((plain > 0).sum())} "
+              f"of {plain.numel()} nonzero)")
+
+    d = scan[0]
+    H, W = d.shape
+    graph = torch.cuda.CUDAGraph()
+    bilateral_filter_plain(d, max_depth, radius)         # warm the allocator
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph):
+        bilateral_filter_plain(d, max_depth, radius)
+    torch.cuda.synchronize()
+    taps = inside_taps(W, radius) * inside_taps(H, radius)
+    # a tap: subtract, square, scale, add the space term, negate, expf,
+    # weight, two sums; a pixel: divide, max, round, two gate tests
+    ops = 9.0 * taps + 5.0 * H * W
+    b_ms, b_by = bound(2 * H * W * 4, ops)
+    entries["bilateral"] = dict(
+        name="bilateral", route="cuda",
+        source="elasticfusion_tpu_torch/csrc/bilateral.cu",
+        replaces="none: port-only (the reference's plain-JAX filter, fused by XLA)",
+        max_abs_err=0.0,
+        ms=time_ms(lambda: bilateral_filter(d, max_depth, radius), queue_first=True),
+        plain_ms=time_ms(lambda: bilateral_filter_plain(d, max_depth, radius),
+                         reps=5, warm=1),
+        plain_graph_ms=time_ms(graph.replay, reps=10, warm=1, queue_first=True),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        bytes=2 * H * W * 4, taps=taps,
+    )
+    e = entries["bilateral"]
+    print(f"  bilateral {W}x{H} r={radius}: kernel {e['ms']:.4f} ms, plain eager "
+          f"{e['plain_ms']:.3f} ms, plain replayed as a graph {e['plain_graph_ms']:.3f} ms, "
+          f"bound {b_ms:.5f} ms by {b_by} ({taps} taps); at most 0.06 ms: "
+          f"{'yes' if e['ms'] <= 0.06 else 'NO'}", flush=True)
+
+
 WRAPPERS = {"gram_outer": gram_outer, "icp_step": icp_step,
             "rgb_residual": compute_rgb_residual, "rgb_step": rgb_step,
             "so3_step": so3_step, "so3_update": so3_update, "gn_update": gn_update,
-            "splat_resolve": splat_resolve, "fuse_window": fuse_window}
+            "splat_resolve": splat_resolve, "fuse_window": fuse_window,
+            "bilateral": bilateral_filter}
 # kernels that the main path no longer runs (their caller was fused)
 OFF_THE_PATH = {"gram_outer"}
 # the launches of icp_step's fixed-point form, counted apart (`fx16_tables`)
@@ -971,7 +1098,7 @@ KERNEL_SYMBOLS = {"gram_outer": "gram_kernel", "icp_step": "icp_step_kernel",
                   "rgb_residual": "rgb_residual_kernel", "rgb_step": "rgb_step_kernel",
                   "so3_step": "so3_step_kernel", "so3_update": "so3_update_kernel",
                   "gn_update": "gn_update_kernel", "splat_resolve": "splat_resolve_kernel",
-                  "fuse_window": "fuse_window_kernel"}
+                  "fuse_window": "fuse_window_kernel", "bilateral": "bilateral_kernel"}
 
 
 def _names_kernel(trace_name: str, symbol: str) -> bool:

@@ -40,14 +40,16 @@ _COMMON_FLAGS = [
 # The stencils and the fused odometry steps decide hits, matches and inliers
 # by float comparisons; without FMA contraction every operation rounds as the
 # plain PyTorch versions' do, so the decisions agree (the odometry steps spell
-# out the FMAs of their matrix products and Gram sums).  The Gram sum alone has
-# no decisions and keeps its FMAs.
+# out the FMAs of their matrix products and Gram sums); the bilateral filter
+# is bit-identical to its plain version for the same reason.  The Gram sum
+# alone has no decisions and keeps its FMAs.
 SOURCES: Dict[str, List[str]] = {
     "gram": [],
     "odometry_steps": ["-fmad=false"],
     "tracker_update": ["-fmad=false"],
     "splat_resolve": ["-fmad=false"],
     "fuse_window": ["-fmad=false"],
+    "bilateral": ["-fmad=false"],
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -61,10 +61,10 @@ from .config import EngineConfig
 from .deformation import Deformation, _sample_every, apply_graph_to_surfels
 from .ferns import Ferns, decimate_views, fern_encode_device, fern_score_device
 from .graphs import FrameRunner, copy_into
+from .ops.bilateral import bilateral_filter
 from .ops.fillin import fill_all
 from .ops.fuse import FuseStats, clean, fuse
 from .ops.preprocess import (
-    bilateral_filter,
     metricise_depth,
     pyr_down_intensity,
     rgb_to_intensity,

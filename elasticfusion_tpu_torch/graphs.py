@@ -38,7 +38,7 @@ from typing import Callable, Dict, List, NamedTuple, Optional
 
 import torch
 
-from .ops import fuse_window, gram, odometry, splat_resolve
+from .ops import bilateral, fuse_window, gram, odometry, splat_resolve
 
 # every kernel wrapper's launch counter: (wrapper, attribute)
 COUNTERS = (
@@ -52,6 +52,7 @@ COUNTERS = (
     (odometry.gn_update, "launches"),
     (splat_resolve.splat_resolve, "launches"),
     (fuse_window.fuse_window, "launches"),
+    (bilateral.bilateral_filter, "launches"),
 )
 
 

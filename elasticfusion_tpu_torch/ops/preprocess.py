@@ -2,7 +2,7 @@
 ComputePacks and CUDA pyramid kernels.
 
 Behaviour being matched:
-  - bilateral depth filter: Core/Shaders/depth_bilateral.frag
+  - bilateral depth filter: Core/Shaders/depth_bilateral.frag (ops/bilateral.py)
   - metric conversion:      depth_metric.frag (gate <300 mm or >maxD)
   - vmap/nmap creation:     Core/Cuda/cudafuncs.cu:128-229
   - depth pyrDown w/ 3σ rejection, σ=30 mm: cudafuncs.cu:77-121
@@ -58,35 +58,6 @@ class _Padded:
 def shift2d(x: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
     """Value of x at (y+dy, x+dx) with zero padding, same shape as x."""
     return _Padded(x, max(abs(dy), abs(dx)), with_mask=False).tap(dy, dx)
-
-
-def bilateral_filter(
-    depth_mm: torch.Tensor, max_depth: float = 20.0, radius: int = 6
-) -> torch.Tensor:
-    """Bilateral filter on raw depth (float, millimetres).
-
-    Matches depth_bilateral.frag: 13×13 window, σ_space=4.5, σ_color=30 mm,
-    gate `value > maxD*1000 || value < 300` → 0.
-    """
-    sigma_space2_inv_half = 0.024691358
-    sigma_color2_inv_half = 0.000555556
-    center = depth_mm.to(torch.float32)
-    pad = _Padded(center, radius)
-    num = torch.zeros_like(center)
-    den = torch.zeros_like(center)
-    for dy in range(-radius, radius + 1):
-        for dx in range(-radius, radius + 1):
-            nb = pad.tap(dy, dx)
-            space2 = float(dy * dy + dx * dx)
-            color2 = (center - nb) * (center - nb)
-            w = torch.exp(-(space2 * sigma_space2_inv_half + color2 * sigma_color2_inv_half))
-            # out-of-image taps are masked out (the shader clamps its loop)
-            inside = pad.inside(dy, dx)
-            num = num + nb * w * inside
-            den = den + w * inside
-    out = torch.round(num / torch.clamp(den, min=1e-12))
-    gate = (center > max_depth * 1000.0) | (center < 300.0)
-    return torch.where(gate, torch.zeros_like(out), out)
 
 
 def metricise_depth(depth_mm: torch.Tensor, max_depth: float = 20.0) -> torch.Tensor:

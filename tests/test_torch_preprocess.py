@@ -6,10 +6,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from _torch_parity import SMALL_CAM, both_cams, nn, tt
 from elasticfusion_tpu.ops import preprocess as ref_pp
 from elasticfusion_tpu.utils.synthetic import make_scene, pose_from_xyzrpy, render_frame
+from elasticfusion_tpu_torch.ops import bilateral as port_bf
 from elasticfusion_tpu_torch.ops import preprocess as port_pp
 
 
@@ -67,7 +69,7 @@ def port_out(frame, ref_out):
     r = {k: tt(v) for k, v in ref_out.items()}
     dx, dy = port_pp.compute_derivatives(r["intensity"])
     return dict(
-        bilateral=port_pp.bilateral_filter(tt(depth_mm), 20.0, 6),
+        bilateral=port_bf.bilateral_filter(tt(depth_mm), 20.0, 6),
         metricise=port_pp.metricise_depth(r["bilateral"], 3.0),
         metricise_every_mm=port_pp.metricise_depth(tt(EVERY_MM), 20.0),
         vmap=port_pp.compute_vmap(r["metricise"], port_cam, 20.0),
@@ -121,6 +123,17 @@ def test_preprocess_stage_matches_reference(name, ref_out, port_out):
         step = {"bilateral": 1.0, "intensity": 1.0, "deriv_x": 1.0, "deriv_y": 1.0,
                 "pyr_down_depth": 0.1}[name]
         assert np.abs(got - ref).max() <= step + atol
+
+
+@pytest.mark.parametrize("radius", [6, 3])
+def test_bilateral_filter_on_the_cpu_is_its_plain_version(frame, radius):
+    """The wrapper takes the plain version for a CPU tensor, bit for bit,
+    and launches nothing."""
+    depth = tt(frame[2])
+    before = port_bf.bilateral_filter.launches
+    got = port_bf.bilateral_filter(depth, 20.0, radius)
+    assert torch.equal(got, port_bf.bilateral_filter_plain(depth, 20.0, radius))
+    assert port_bf.bilateral_filter.launches == before
 
 
 def test_borders_are_zero_filled_shifts():

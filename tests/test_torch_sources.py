@@ -17,6 +17,7 @@ import torch
 
 import elasticfusion_tpu_torch
 from elasticfusion_tpu_torch import _build
+from elasticfusion_tpu_torch.ops import bilateral as bilateral_mod
 from elasticfusion_tpu_torch.ops import fuse_window as fuse_window_mod
 from elasticfusion_tpu_torch.ops import gram as gram_mod
 from elasticfusion_tpu_torch.ops import odometry as odometry_mod
@@ -25,7 +26,8 @@ from elasticfusion_tpu_torch.ops import splat_resolve as splat_resolve_mod
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "elasticfusion_tpu_torch")
 FORBIDDEN = {"jax", "jaxlib", "elasticfusion_tpu"}
-WRAPPER_MODULES = (gram_mod, odometry_mod, splat_resolve_mod, fuse_window_mod)
+WRAPPER_MODULES = (gram_mod, odometry_mod, splat_resolve_mod, fuse_window_mod,
+                   bilateral_mod)
 
 
 def _python_sources():
@@ -114,11 +116,12 @@ WRAPPERS = [(m, *call) for m in WRAPPER_MODULES for call in _kernel_function_cal
 
 
 def test_the_port_has_seven_kernel_wrappers():
-    """Seven kernels of the Pallas sites' paths, and the two tracker
-    updates (csrc/tracker_update.cu) that keep the tracker's loops on the
-    card."""
+    """Seven kernels of the Pallas sites' paths, the two tracker updates
+    (csrc/tracker_update.cu) that keep the tracker's loops on the card, and
+    the bilateral filter (csrc/bilateral.cu), which XLA fuses for the
+    reference."""
     assert sorted(w[1] for w in WRAPPERS) == [
-        "compute_rgb_residual", "fuse_window", "gn_update", "gram_outer",
+        "bilateral_filter", "compute_rgb_residual", "fuse_window", "gn_update", "gram_outer",
         "icp_step", "rgb_step", "so3_step", "so3_update", "splat_resolve"]
 
 
@@ -171,6 +174,7 @@ def _meta_calls():
         sigma_sum=_meta(), flat0=_meta(N, dtype=torch.int32))
     return {
         "gram_outer": lambda: gram_mod.gram_outer(_meta(7, 64)),
+        "bilateral_filter": lambda: bilateral_mod.bilateral_filter(_meta(H, W)),
         "splat_resolve": lambda: splat_resolve_mod.splat_resolve(
             _meta(13, H, W), 5.0, 5.0, 3.0, 2.0),
         "fuse_window": lambda: fuse_window_mod.fuse_window(
