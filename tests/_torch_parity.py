@@ -7,6 +7,8 @@ the CPU, where every kernel wrapper takes its plain version.
 
 from __future__ import annotations
 
+from pathlib import Path
+
 import numpy as np
 import torch
 
@@ -60,39 +62,24 @@ def rot_err(Ta: np.ndarray, Tb: np.ndarray) -> float:
 def run_reference_child(func: str, out_path, *args: str, timeout: float,
                         cpu_devices: int = 1):
     """Run `tests/<module>.py::<function>(out_path, *args)` of the reference
-    package in a child interpreter and load the `.npz`/pickle it writes
+    package in a child interpreter and load the pickle it writes
     (`cpu_devices` > 1: a virtual CPU mesh of that many devices, for the
     reference's `mesh_shape` engine).
 
     A reference run that goes through un-jitted JAX calls (host
     orchestration: `Deformation.constrain`, `Ferns`, `Engine`) compiles one
     XLA program per operation; under `tests/conftest.py`, which forks a
-    child for every compile, such a run takes many minutes.  The child
-    compiles in its own process instead, which keeps the suite just as safe
-    from an XLA:CPU crash (it ends the child, and the run is tried once
-    more) at the cost of one interpreter start.  Each caller sets `timeout`
-    to about 1.5x the slowest reading of its child within a whole tier-1
-    run: a child that hangs fails its own test, not the run."""
+    child for every compile, such a run takes many minutes in the test
+    process.  The child compiles in its own process instead, which keeps the
+    suite just as safe from an XLA:CPU crash (it ends the child, and the run
+    is tried once more).  A child that runs past `timeout` seconds fails its
+    caller.  The runs of `REFERENCE_MODULES` are read from committed files
+    (`reference_output`); the one live child in tier-1 is the checkpoint
+    test's, which loads a checkpoint the port wrote in the same test."""
+    import os
     import pickle
     import subprocess
     import sys
-
-    code, env, cwd = _child_command(func, cpu_devices)
-    for attempt in range(2):
-        out = subprocess.run([sys.executable, "-c", code, str(out_path), *args],
-                             cwd=cwd, env=env, capture_output=True,
-                             text=True, timeout=timeout)
-        if out.returncode == 0:
-            with open(out_path, "rb") as f:
-                return pickle.load(f)
-        if out.returncode > 0 or attempt == 1:
-            raise RuntimeError(f"reference run {func} failed:\n{out.stderr[-4000:]}")
-
-
-def _child_command(func: str, cpu_devices: int = 1):
-    """(code, environment, working directory) of a reference child running
-    `tests/<module>.py::<function>`."""
-    import os
 
     here = os.path.dirname(os.path.abspath(__file__))
     module, name = func.split(":")
@@ -112,57 +99,89 @@ def _child_command(func: str, cpu_devices: int = 1):
                             f"device_count={cpu_devices}").strip()
     env["PYTHONPATH"] = os.pathsep.join(
         [os.path.dirname(here), here, env.get("PYTHONPATH", "")])
-    return code, env, os.path.dirname(here)
-
-
-class ReferenceChild:
-    """`run_reference_child` started in the background: the test process
-    runs the port while the child compiles and runs the reference, and
-    `result()` waits for it (a child killed by a signal is run once more, in
-    the foreground).  `timeout` counts from the start; a child still running
-    then is killed and its test fails."""
-
-    def __init__(self, func: str, out_path, *args: str, timeout: float,
-                 cpu_devices: int = 1):
-        import subprocess
-        import sys
-        import time
-
-        self._call = (func, out_path, args, timeout, cpu_devices)
-        self._deadline = time.monotonic() + timeout
-        code, env, cwd = _child_command(func, cpu_devices)
-        # a file, not a pipe: nobody reads the child's stderr while it runs
-        self._err = open(str(out_path) + ".stderr", "w+")
-        self._proc = subprocess.Popen(
-            [sys.executable, "-c", code, str(out_path), *args], cwd=cwd, env=env,
-            stdout=subprocess.DEVNULL, stderr=self._err, text=True)
-
-    def result(self):
-        import pickle
-        import subprocess
-        import time
-
-        func, out_path, args, timeout, cpu_devices = self._call
-        try:
-            self._proc.wait(timeout=max(self._deadline - time.monotonic(), 0.0))
-        except subprocess.TimeoutExpired:
-            self.kill()
-            raise
-        self._err.seek(0)
-        err = self._err.read()
-        self._err.close()
-        if self._proc.returncode == 0:
+    for attempt in range(2):
+        out = subprocess.run([sys.executable, "-c", code, str(out_path), *args],
+                             cwd=os.path.dirname(here), env=env, capture_output=True,
+                             text=True, timeout=timeout)
+        if out.returncode == 0:
             with open(out_path, "rb") as f:
                 return pickle.load(f)
-        if self._proc.returncode > 0:
-            raise RuntimeError(f"reference run {func} failed:\n{err[-4000:]}")
-        return run_reference_child(func, out_path, *args, timeout=timeout,
-                                   cpu_devices=cpu_devices)
+        if out.returncode > 0 or attempt == 1:
+            raise RuntimeError(f"reference run {func} failed:\n{out.stderr[-4000:]}")
 
-    def kill(self):
-        """End the child if it still runs (a no-op once `result()` has
-        returned)."""
-        if self._proc.poll() is None:
-            self._proc.kill()
-            self._proc.wait()
-        self._err.close()
+
+# The port's test modules that read a reference run from a committed file
+# instead of running it: each declares REFERENCE_OUTPUTS, name -> (function,
+# arguments, cpu_devices) of `run_reference_child`, built from its own
+# constants.  Every input of such a run is seeded or fixed.
+# `python tests/_torch_parity.py [name ...]` makes the files anew.
+REFERENCE_MODULES = ("test_torch_closure", "test_torch_deformation", "test_torch_external_pose",
+                     "test_torch_ferns", "test_torch_pipeline", "test_torch_scaling_bench",
+                     "test_torch_shard", "test_torch_shard_engine")
+REFERENCE_DIR = Path(__file__).resolve().parent / "data" / "torch_reference"
+# seconds one reference run may take when its output is made anew
+REGENERATE_TIMEOUT = 3600.0
+
+
+def reference_outputs() -> dict:
+    """name -> (module, function, arguments, cpu_devices) of every committed
+    output."""
+    import importlib
+
+    return {name: (module, *recipe) for module in REFERENCE_MODULES
+            for name, recipe in importlib.import_module(module).REFERENCE_OUTPUTS.items()}
+
+
+def reference_sources(module: str) -> dict:
+    """path -> sha256 of every source a reference run of test module
+    `module` reads: the reference package, this file, the module (its
+    helpers and constants), and the port's synthetic scenes (the shard
+    files render their frames with them)."""
+    import hashlib
+
+    root = REFERENCE_DIR.parents[2]
+    paths = [*sorted((root / "elasticfusion_tpu").rglob("*.py")),
+             Path(__file__).resolve(), root / "tests" / f"{module}.py",
+             root / "elasticfusion_tpu_torch" / "utils" / "synthetic.py"]
+    return {path.relative_to(root).as_posix(): hashlib.sha256(path.read_bytes()).hexdigest()
+            for path in paths}
+
+
+def reference_output(name: str, record: bool = False):
+    """The committed output of reference run `name`; with `record`, the
+    whole file: `output`, the `sources` it was made from and the `jax` /
+    `jaxlib` versions that made it."""
+    import gzip
+    import pickle
+
+    with gzip.open(REFERENCE_DIR / f"{name}.pkl.gz", "rb") as f:
+        whole = pickle.load(f)
+    return whole if record else whole["output"]
+
+
+if __name__ == "__main__":
+    import gzip
+    import pickle
+    import sys
+    import tempfile
+
+    # the environment the suite's children inherit (XLA_FLAGS, platform)
+    sys.path.insert(0, str(REFERENCE_DIR.parents[2]))
+    import conftest  # noqa: F401
+    import jax
+    import jaxlib
+
+    table = reference_outputs()
+    REFERENCE_DIR.mkdir(parents=True, exist_ok=True)
+    for name in sys.argv[1:] or table:
+        module, func, args, cpu_devices = table[name]
+        sources = reference_sources(module)
+        with tempfile.TemporaryDirectory() as tmp:
+            output = run_reference_child(f"{module}:{func}", Path(tmp) / "out.pkl", *args,
+                                         timeout=REGENERATE_TIMEOUT, cpu_devices=cpu_devices)
+        path = REFERENCE_DIR / f"{name}.pkl.gz"
+        # protocol 4: protocol 5 would load the arrays read-only
+        with open(path, "wb") as raw, gzip.GzipFile(fileobj=raw, mode="wb", mtime=0) as f:
+            pickle.dump(dict(output=output, sources=sources, jax=jax.__version__,
+                             jaxlib=jaxlib.__version__), f, protocol=4)
+        print(f"{path}: {path.stat().st_size} bytes", flush=True)

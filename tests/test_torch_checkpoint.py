@@ -6,12 +6,13 @@ interpreter) loads in the port with the same state and tracks on, and one
 written by the port loads in the reference with the same fields."""
 
 import pickle
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
 import torch
 
-from _torch_parity import SMALL_CAM, ReferenceChild, both_cams
+from _torch_parity import SMALL_CAM, both_cams, run_reference_child
 from elasticfusion_tpu.utils.synthetic import make_scene, pose_from_xyzrpy, render_frame
 from elasticfusion_tpu_torch import engine as port_engine
 from elasticfusion_tpu_torch.checkpoint import FORMAT_VERSION, load_checkpoint, save_checkpoint
@@ -119,9 +120,12 @@ def runs(tmp_path_factory):
     for r, d, ts, _ in _there_back()[:9]:
         closing.process_frame(r, d, timestamp=ts)
     save_checkpoint(tmp / "port_closure.npz", closing)
-    child = ReferenceChild("test_torch_checkpoint:reference_checkpoints", tmp / "ref.pkl",
-                           str(tmp / "port_closure.npz"), str(tmp / "ref.npz"),
-                           timeout=150.0)
+    # the reference's child runs in the background while the port runs on
+    pool = ThreadPoolExecutor(1)
+    child = pool.submit(run_reference_child, "test_torch_checkpoint:reference_checkpoints",
+                        tmp / "ref.pkl", str(tmp / "port_closure.npz"), str(tmp / "ref.npz"),
+                        timeout=150.0)
+    pool.shutdown(wait=False)
     # tests/test_checkpoint.py:13-44 within the port
     frames = _sweep(9)
     eng = _port(**ROUND_TRIP)

@@ -26,10 +26,10 @@ import torch
 
 from _torch_parity import (
     SMALL_CAM,
-    ReferenceChild,
     both_cams,
     frac_differing,
     nn,
+    reference_output,
     rot_err,
     tt,
 )
@@ -53,9 +53,6 @@ SCENARIOS = {
                      fern_min_age=3, fern_inlier_count=100, lost_inlier_relax=50,
                      fern_threshold=0.12, fern_icp_error=2e-3, pipeline_depth=0),
 }
-# seconds each scenario's reference child may take: about 1.5x the slowest
-# reading of it within a whole tier-1 run on an 8-core CPU
-REF_TIMEOUT = {"local": 1400.0, "teleport": 1010.0}
 
 
 def _cams(scale=1):
@@ -113,10 +110,10 @@ def _first_state(eng):
 
 
 def reference_engines(out_path, name):
-    """One scenario through the reference `Engine` (run in a child
-    interpreter by `ReferenceChild`: the closure decisions go through
-    un-jitted JAX) and the inputs and result of its first two model-to-model
-    solves that found inliers; for `local`, the extras on the first of them."""
+    """One scenario through the reference `Engine` and the inputs and result
+    of its first two model-to-model solves that found inliers; for `local`,
+    the extras on the first of them (its output is committed,
+    `REFERENCE_OUTPUTS` below)."""
     ref_cam, _ = both_cams(SMALL_CAM)
     m2m = []
     finish = RefEngine._finish
@@ -138,6 +135,11 @@ def reference_engines(out_path, name):
         out["extras"] = _reference_extras(m2m[0], RefConfig(camera=ref_cam, **SCENARIOS[name]))
     with open(out_path, "wb") as f:
         pickle.dump(out, f)
+
+
+# the committed outputs of this run, one a scenario, read by the tests below
+# (`_torch_parity.reference_output`): name -> (function, arguments, cpu_devices)
+REFERENCE_OUTPUTS = {f"closure_{name}": ("reference_engines", (name,), 1) for name in SCENARIOS}
 
 
 def _reference_extras(c, cfg):
@@ -163,26 +165,15 @@ def _reference_extras(c, cfg):
 
 
 @pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    tmp = tmp_path_factory.mktemp("ref")
-    # one child a scenario, side by side and beside the port: each scenario's
-    # configuration compiles its own frame programs, so a child that ran both
-    # would compile no less and take their sum
-    children = {name: ReferenceChild("test_torch_closure:reference_engines",
-                                     tmp / f"{name}.pkl", name, timeout=REF_TIMEOUT[name])
-                for name in SCENARIOS}
-    try:
-        port = {}
-        for name, kw in SCENARIOS.items():
-            frames, stop_from = _frames(name)
-            eng = port_engine.Engine(PortConfig(camera=PortCam(**SMALL_CAM), **kw), device="cpu")
-            first = {}
-            port[name] = _drive(eng, frames, stop_from, lambda e: first.update(_first_state(e)))
-            port[name].update(engine=eng, first=first)
-        ref = {name: child.result() for name, child in children.items()}
-    finally:
-        for child in children.values():
-            child.kill()
+def runs():
+    port = {}
+    for name, kw in SCENARIOS.items():
+        frames, stop_from = _frames(name)
+        eng = port_engine.Engine(PortConfig(camera=PortCam(**SMALL_CAM), **kw), device="cpu")
+        first = {}
+        port[name] = _drive(eng, frames, stop_from, lambda e: first.update(_first_state(e)))
+        port[name].update(engine=eng, first=first)
+    ref = {name: reference_output(f"closure_{name}") for name in SCENARIOS}
     ref["m2m"] = [c for name in SCENARIOS for c in ref[name]["m2m"]][:2]
     ref["extras"] = ref["local"]["extras"]
     return ref, port

@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import nn, rot_err, run_reference_child, tt
+from _torch_parity import nn, reference_output, rot_err, tt
 from elasticfusion_tpu import deformation as ref_def
 from elasticfusion_tpu.surfels import SurfelMap as RefMap
 from elasticfusion_tpu_torch import convert
@@ -258,19 +258,22 @@ def _run_constrain(mod, to_graph, g, cons, fern_poses, hist, **dev):
 
 
 def reference_constrain(out_path):
-    """The reference `constrain` on `_constrain_inputs` (run in a child
-    interpreter by `run_reference_child`: it goes through un-jitted JAX)."""
+    """The reference `constrain` on `_constrain_inputs` (its output is
+    committed, `REFERENCE_OUTPUTS` below)."""
     out = _run_constrain(ref_def, lambda gr: {k: np.asarray(v) for k, v in gr._asdict().items()},
                          *_constrain_inputs())
     with open(out_path, "wb") as f:
         pickle.dump(out, f)
 
 
+# the committed output of this run, read by the tests below (`_torch_parity.reference_output`):
+# name -> (function, arguments, cpu_devices)
+REFERENCE_OUTPUTS = {"deformation_constrain": ("reference_constrain", (), 1)}
+
+
 @pytest.fixture(scope="module")
-def constrained(tmp_path_factory):
-    ref_out = run_reference_child("test_torch_deformation:reference_constrain",
-                                  tmp_path_factory.mktemp("ref") / "constrain.pkl",
-                                  timeout=60.0)
+def constrained():
+    ref_out = reference_output("deformation_constrain")
     inputs = _constrain_inputs()
     port_out = _run_constrain(port_def, convert.graph_state_to_numpy, *inputs,
                               device="cpu")

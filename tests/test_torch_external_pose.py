@@ -1,6 +1,6 @@
 """Externally supplied poses (`process_frame(..., in_T_wc=T)` after the first
 frame: fuse at the given pose, no tracking, no loop closure) through the
-port and the reference engine (in a child interpreter), on the frames of
+port and the reference engine (its committed output), on the frames of
 `tests/test_engine.py:63-73` and on a slower camera whose velocity weight is
 not clamped.
 
@@ -13,7 +13,7 @@ import pickle
 import numpy as np
 import pytest
 
-from _torch_parity import SMALL_CAM, ReferenceChild, both_cams
+from _torch_parity import SMALL_CAM, both_cams, reference_output
 from elasticfusion_tpu.utils.synthetic import make_scene, pose_from_xyzrpy, render_frame
 from elasticfusion_tpu_torch import convert
 from elasticfusion_tpu_torch import engine as port_engine
@@ -83,12 +83,14 @@ def reference_runs(out_path):
         pickle.dump(out, f)
 
 
+# the committed output of this run, read by the tests below (`_torch_parity.reference_output`):
+# name -> (function, arguments, cpu_devices)
+REFERENCE_OUTPUTS = {"external_pose_runs": ("reference_runs", (), 1)}
+
+
 @pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    child = ReferenceChild("test_torch_external_pose:reference_runs",
-                           tmp_path_factory.mktemp("ref") / "external.pkl",
-                           timeout=230.0)
-    ref = child.result()
+def runs():
+    ref = reference_output("external_pose_runs")
     port, tracked = {}, []
     real = port_engine.get_incremental_transformation
     port_engine.get_incremental_transformation = (

@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import SMALL_CAM, both_cams, nn, rot_err, run_reference_child, tt
+from _torch_parity import SMALL_CAM, both_cams, nn, reference_output, rot_err, tt
 from elasticfusion_tpu import ferns as ref_ferns
 from elasticfusion_tpu.config import EngineConfig as RefConfig
 from elasticfusion_tpu.ops.preprocess import compute_nmap, compute_vmap, metricise_depth
@@ -54,9 +54,8 @@ def _flow(ferns, views):
 
 
 def reference_flow(out_path):
-    """The views and the reference `Ferns` add/find flow (run in a child
-    interpreter by `run_reference_child`: `Ferns` goes through un-jitted
-    JAX)."""
+    """The views and the reference `Ferns` add/find flow (its output is
+    committed, `REFERENCE_OUTPUTS` below)."""
     ref_cam, _ = both_cams(SMALL_CAM)
     views = _views(ref_cam)
     ferns = ref_ferns.Ferns(RefConfig(camera=ref_cam, **FERN_CFG))
@@ -68,11 +67,14 @@ def reference_flow(out_path):
         pickle.dump(out, f)
 
 
+# the committed output of this run, read by the tests below (`_torch_parity.reference_output`):
+# name -> (function, arguments, cpu_devices)
+REFERENCE_OUTPUTS = {"ferns_flow": ("reference_flow", (), 1)}
+
+
 @pytest.fixture(scope="module")
-def flows(tmp_path_factory):
-    ref = run_reference_child("test_torch_ferns:reference_flow",
-                              tmp_path_factory.mktemp("ref") / "ferns.pkl",
-                              timeout=60.0)
+def flows():
+    ref = reference_output("ferns_flow")
     port = port_ferns.Ferns(PortConfig(camera=both_cams(SMALL_CAM)[1], **FERN_CFG), "cpu")
     return ref, port, _flow(port, ref["views"])
 

@@ -4,8 +4,8 @@ scenarios of the reference package's `tests/test_pipeline.py` at 160x120:
 - the there-and-back run whose return closes loops locally, at depth 2
   against depth 0 (that test's bounds: the closure is learnt 2 frames late
   and repaired deferred), and at depth 2 against the reference engine at
-  depth 2 (run in a child interpreter: the same closures with the same
-  frames in flight; the pose gap is stated at the test);
+  depth 2 (its committed output: the same closures with the same frames
+  in flight; the pose gap is stated at the test);
 - the in-flight pose-fix windows (`_pose_fixes`): drained at depth 0 and
   after a flush, and applied only inside their window;
 - fern-teleport relocalization after a blackout, at depth 0 and 2;
@@ -19,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import SMALL_CAM, ReferenceChild, both_cams, rot_err
+from _torch_parity import SMALL_CAM, both_cams, reference_output, rot_err
 from elasticfusion_tpu.utils.synthetic import make_scene, pose_from_xyzrpy, render_frame
 from elasticfusion_tpu_torch import engine as port_engine
 from elasticfusion_tpu_torch.config import CameraConfig as PortCam
@@ -70,7 +70,7 @@ def _drive(eng, frames):
 
 def reference_depth2(out_path):
     """The there-and-back run through the reference `Engine` at depth 2
-    (run by `ReferenceChild`)."""
+    (its output is committed, `REFERENCE_OUTPUTS` below)."""
     from elasticfusion_tpu.config import EngineConfig as RefConfig
     from elasticfusion_tpu.engine import Engine as RefEngine
 
@@ -81,16 +81,18 @@ def reference_depth2(out_path):
         pickle.dump(run, f)
 
 
+# the committed output of this run, read by the tests below (`_torch_parity.reference_output`):
+# name -> (function, arguments, cpu_devices)
+REFERENCE_OUTPUTS = {"pipeline_depth2": ("reference_depth2", (), 1)}
+
+
 def _port(depth, **kw):
     cfg = PortConfig(camera=PortCam(**SMALL_CAM), pipeline_depth=depth, **kw)
     return port_engine.Engine(cfg, device="cpu")
 
 
 @pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    child = ReferenceChild("test_torch_pipeline:reference_depth2",
-                           tmp_path_factory.mktemp("ref") / "depth2.pkl",
-                           timeout=1390.0)
+def runs():
     frames = _there_back()
     out = {}
     # depth 0, checking before every finish that the pose the next frame was
@@ -111,7 +113,7 @@ def runs(tmp_path_factory):
     out[0].update(engine=eng0, carried=carried)
     eng2 = _port(2, **CLOSURE)
     out[2] = dict(_drive(eng2, frames), engine=eng2)
-    return out, child.result(), frames
+    return out, reference_output("pipeline_depth2"), frames
 
 
 def test_depth2_agrees_with_depth0(runs):

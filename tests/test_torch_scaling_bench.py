@@ -7,8 +7,8 @@ device), at `-n 2 -cap 14 -frames 2`:
   - the S = 1 leg is the one-device `slam_step` bit for bit;
   - the S = 2 leg, booted as the reference boots it (the first frame in
     shard 0), against the reference's S = 2 `make_shardmap_step` leg run the
-    same way on a 2-device virtual CPU mesh (in a child interpreter, in the
-    background while the port runs): the bounds of
+    same way on a 2-device virtual CPU mesh (its committed output): the
+    bounds of
     `test_torch_shard.py::test_shardmap_step_matches_the_one_device_step`,
     poses < 1e-3 m and 1e-3 on each rotation element, and per-shard counts
     within 1 % (the bound of `chip_smoke.py` phase 7 (c))."""
@@ -22,7 +22,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import ReferenceChild
+from _torch_parity import reference_output
 from elasticfusion_tpu_torch.parallel import shard_step
 from elasticfusion_tpu_torch.tools import scaling_bench
 
@@ -92,12 +92,14 @@ def reference_shard_leg(out_path, n, cap_log2, frames):
         pickle.dump(dict(counts=np.asarray(jax.device_get(mm.count)), poses=poses), f)
 
 
+# the committed output of this run, read by the tests below (`_torch_parity.reference_output`):
+# name -> (function, arguments, cpu_devices)
+REFERENCE_OUTPUTS = {"scaling_bench_shard_leg": ("reference_shard_leg",
+                                                 (str(N), str(CAP_LOG2), str(FRAMES)), N)}
+
+
 @pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    tmp = tmp_path_factory.mktemp("scaling")
-    child = ReferenceChild("test_torch_scaling_bench:reference_shard_leg",
-                           tmp / "ref.pkl", str(N), str(CAP_LOG2), str(FRAMES),
-                           timeout=280.0, cpu_devices=N)
+def runs():
     kept = {}
 
     def keep(fn, key):
@@ -116,7 +118,7 @@ def runs(tmp_path_factory):
             with contextlib.redirect_stdout(buf):
                 assert scaling_bench.main(argv) == 0
             printed[key] = json.loads(buf.getvalue())
-    return dict(printed=printed, kept=kept, ref=child.result())
+    return dict(printed=printed, kept=kept, ref=reference_output("scaling_bench_shard_leg"))
 
 
 def _check_collectives(collectives, calls, steps):

@@ -29,8 +29,8 @@ the reference tests' 8-device virtual CPU mesh).
     more than the reference's; a checkpoint saved at S = 2 and restored at
     S = 2, 1 and 3.
 
-The reference runs in a child interpreter on an 8-device virtual CPU mesh
-(`_torch_parity.ReferenceChild`), in the background while the port runs;
+The reference's output comes from a run on an 8-device virtual CPU mesh,
+committed (`REFERENCE_OUTPUTS` below);
 tests/test_torch_shard_engine.py holds the `mesh_shape` engines."""
 
 import pickle
@@ -39,7 +39,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import SMALL_CAM, ReferenceChild, both_cams, frac_differing, nn, tt
+from _torch_parity import SMALL_CAM, both_cams, frac_differing, nn, reference_output, tt
 from elasticfusion_tpu_torch import checkpoint as port_ckpt
 from elasticfusion_tpu_torch import engine as port_engine
 from elasticfusion_tpu_torch.config import EngineConfig as PortConfig
@@ -143,19 +143,21 @@ def reference_predictions(out_path):
         pickle.dump(out, f)
 
 
+# the committed output of this run, read by the tests below (`_torch_parity.reference_output`):
+# name -> (function, arguments, cpu_devices)
+REFERENCE_OUTPUTS = {"shard_predictions": ("reference_predictions", (), 8)}
+
+
 @pytest.fixture(scope="module")
-def world(tmp_path_factory):
-    tmp = tmp_path_factory.mktemp("shard")
-    child = ReferenceChild("test_torch_shard:reference_predictions", tmp / "ref.pkl",
-                           timeout=210.0, cpu_devices=8)
+def world():
     _, port_cam = both_cams(SMALL_CAM)
     poses, rendered = _sweep(port_cam)
-    return dict(child=child, cam=port_cam, poses=poses, rendered=rendered, runs={})
+    return dict(cam=port_cam, poses=poses, rendered=rendered, runs={})
 
 
 @pytest.fixture(scope="module")
-def ref(world):
-    return world["child"].result()
+def ref():
+    return reference_output("shard_predictions")
 
 
 def _port_run(world, S, fx16=False, closeLoops=True):

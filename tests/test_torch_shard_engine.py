@@ -16,15 +16,15 @@ sub-maps.
     run; S = 1 is the one-device engine bit for bit, S = 2 closes and ends
     within 1 cm of the truth and of S = 1.
 
-The reference engine runs in a child interpreter
-(`_torch_parity.ReferenceChild`) while the port runs."""
+The reference engine's output comes from a run on an 8-device virtual CPU
+mesh, committed (`REFERENCE_OUTPUTS` below)."""
 
 import pickle
 
 import numpy as np
 import pytest
 
-from _torch_parity import SMALL_CAM, ReferenceChild, both_cams, rot_err
+from _torch_parity import SMALL_CAM, both_cams, reference_output, rot_err
 from elasticfusion_tpu_torch import engine as port_engine
 from elasticfusion_tpu_torch.config import EngineConfig as PortConfig
 from elasticfusion_tpu_torch.parallel import shard_step
@@ -78,11 +78,9 @@ def reference_mesh_engine(out_path):
         pickle.dump(run, f)
 
 
-@pytest.fixture(scope="module")
-def child(tmp_path_factory):
-    tmp = tmp_path_factory.mktemp("shard_engine")
-    return ReferenceChild("test_torch_shard_engine:reference_mesh_engine",
-                          tmp / "ref.pkl", timeout=450.0, cpu_devices=8)
+# the committed output of this run, read by the tests below (`_torch_parity.reference_output`):
+# name -> (function, arguments, cpu_devices)
+REFERENCE_OUTPUTS = {"shard_engine_mesh": ("reference_mesh_engine", (), 8)}
 
 
 def _local_frames(cam):
@@ -103,7 +101,7 @@ def _local_frames(cam):
 
 
 @pytest.fixture(scope="module")
-def closures(child):
+def closures():
     """The local-closure run at one device, S = 1 and S = 2."""
     _, cam = both_cams(SMALL_CAM)
     frames = _local_frames(cam)
@@ -141,12 +139,12 @@ def test_closures_on_sub_maps(closures):
     assert abs(eng.surfel_count - one["engine"].surfel_count) <= 0.02 * eng.surfel_count
 
 
-def test_mesh_engine_matches_the_references_mesh_engine(child, closures):
+def test_mesh_engine_matches_the_references_mesh_engine():
     _, cam = both_cams(SMALL_CAM)
     _, rendered = _sweep(cam)
     port = _drive_growing(port_engine.Engine(PortConfig(camera=cam, **MESH),
                                              device="cpu"), rendered)
-    want = child.result()
+    want = reference_output("shard_engine_mesh")
     assert [r["capacity"] for r in port] == [r["capacity"] for r in want]
     assert port[-1]["capacity"] > port[0]["capacity"]
     for i, (p, r) in enumerate(zip(port, want)):
