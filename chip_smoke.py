@@ -13,7 +13,7 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
   3. every kernel against its plain PyTorch version on the card, at the shapes
      the main path gives it, then its time, the plain version's time, the
      time of the one library call that computes the same (where there is one)
-     and its bound from bytes and operations.  The ten kernels:
+     and its bound from bytes and operations.  The fourteen kernels:
      `gram_outer` (off the main path since the SO(3) step is fused; held at
      the two shapes it had), the fused tracking steps `icp_step`,
      `rgb_residual`, `rgb_step` (at all three pyramid levels, on the tensors
@@ -28,7 +28,14 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      its plain version on every frame of one period of the benchmark's
      `scan` traffic and on edge cases (zeros, the depth gates, a step, an
      odd size, radius 3), timed beside its plain version eager and replayed
-     as a CUDA graph (the plain stencil's device time on the main path);
+     as a CUDA graph (the plain stencil's device time on the main path); and
+     the port-only pyramid stencils (`pyr_down_depth`, `pyr_down_gauss`,
+     `pyr_down_intensity`, `compute_derivatives`), bit-identical to their
+     plain versions on every pyramid level of every frame of that period,
+     the current frame's images and the model's (the engine's carried
+     prediction or fill-in), and on edge cases (zeros, depth jumps, taps at
+     the 3-sigma gate, odd sizes, views that are not contiguous), timed at
+     each level's shape the same way;
   4. the main path: `Engine.process_frame` over 6 warm-up + 30 frames of the
      640x480 synthetic sweep (replayed as CUDA graphs), twice, the first
      under torch.profiler: every kernel's launches on the card counted by
@@ -140,6 +147,18 @@ from elasticfusion_tpu_torch.ops.preprocess import (  # noqa: E402
     compute_nmap,
     compute_vmap,
     metricise_depth,
+    rgb_to_intensity,
+    vertices_to_depth,
+)
+from elasticfusion_tpu_torch.ops.pyramid import (  # noqa: E402
+    compute_derivatives,
+    compute_derivatives_plain,
+    pyr_down_depth,
+    pyr_down_depth_plain,
+    pyr_down_gauss,
+    pyr_down_gauss_plain,
+    pyr_down_intensity,
+    pyr_down_intensity_plain,
 )
 from elasticfusion_tpu_torch.ops.odometry import (  # noqa: E402
     compute_rgb_residual,
@@ -954,7 +973,9 @@ def phase_kernels(cam, frames, ptxas):
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         bytes=34 * HW * 4, ptxas=k3_ptxas,
     )
-    check_bilateral(cam, entries)
+    period = scan_period(cam)
+    check_bilateral(cam, period, entries)
+    check_pyramid(cam, period, entries)
     for e in entries.values():
         for tag, lv in e.get("levels", {"": e}).items():
             print(f"  {e['name']} {tag}: kernel {lv['ms']:.4f} ms, plain "
@@ -965,15 +986,16 @@ def phase_kernels(cam, frames, ptxas):
     return entries
 
 
-def scan_frames(cam: CameraConfig):
-    """The depth images of one period of the benchmark's `scan` traffic
-    (`efbench/traffic/scan.json`, rendered by its generator on the card)."""
+def scan_period(cam: CameraConfig):
+    """The frames of one period of the benchmark's `scan` traffic
+    (`efbench/traffic/scan.json`, rendered by its generator on the card):
+    [(depth mm u16 [H,W], rgb u8 [H,W,3])] on the host."""
     from efbench import scene as scan_scene
 
     with open("efbench/traffic/scan.json", encoding="utf-8") as f:
         traffic = json.load(f)
     frames, _ = scan_scene.render_period(traffic, cam, DEV)
-    return [torch.from_numpy(d.astype(np.float32)).to(DEV) for d, _ in frames]
+    return frames
 
 
 def bilateral_cases(scan, max_depth: float) -> list:
@@ -1016,13 +1038,13 @@ def inside_taps(n: int, r: int) -> int:
     return sum(min(r, n - 1 - i) - max(-r, -i) + 1 for i in range(n))
 
 
-def check_bilateral(cam, entries) -> None:
+def check_bilateral(cam, period, entries) -> None:
     """The bilateral filter against its plain version, bit for bit, on every
     frame of one `scan` period and on the edge cases; its time eager and the
     plain stencil's, eager and replayed as a CUDA graph."""
     cfg = engine_config(cam)
     max_depth, radius = cfg.max_depth_processed, cfg.bilateral_radius
-    scan = scan_frames(cam)
+    scan = [torch.from_numpy(d.astype(np.float32)).to(DEV) for d, _ in period]
     bilateral_filter.launches = 0
     differing = []
     for i, d in enumerate(scan):
@@ -1082,11 +1104,193 @@ def check_bilateral(cam, entries) -> None:
           f"{'yes' if e['ms'] <= 0.06 else 'NO'}", flush=True)
 
 
+# the pyramid stencils: wrapper name -> (wrapper, plain version)
+PYRAMID = {"pyr_down_depth": (pyr_down_depth, pyr_down_depth_plain),
+           "pyr_down_gauss": (pyr_down_gauss, pyr_down_gauss_plain),
+           "pyr_down_intensity": (pyr_down_intensity, pyr_down_intensity_plain),
+           "compute_derivatives": (compute_derivatives, compute_derivatives_plain)}
+PYR_DOWNS = ("pyr_down_depth", "pyr_down_gauss", "pyr_down_intensity")
+
+
+def pyramid_inputs(cam, period):
+    """Per frame of a `scan` period, the level-0 images its tracking builds
+    pyramids from, from a run of the engine over the period: the current
+    frame's (filtered metric depth, intensity) and the model's (depth,
+    intensity) of the carried prediction or its fill-in, as `_frame_main`
+    selects them.  The first frame tracks nothing: it has no model images."""
+    cfg = engine_config(cam)
+    eng = Engine(cfg, device=DEV)
+    current, model = [], []
+    for i, (d, r) in enumerate(period):
+        depth = torch.from_numpy(d.astype(np.float32)).to(DEV)
+        current.append((engine_mod._preprocess(depth, cfg)[1],
+                        rgb_to_intensity(torch.from_numpy(r).to(DEV))))
+        if i > 0:
+            use_fill = (eng._dense_dev < 0.75) | bool(cfg.frame_to_frame_rgb)
+            vertex = torch.where(use_fill, eng._fill[0], eng._pred.vertex)
+            image = torch.where(use_fill, eng._fill[2], eng._pred.image)
+            model.append((vertices_to_depth(vertex), rgb_to_intensity(image)))
+        eng.process_frame(r, d, timestamp=i)
+    torch.cuda.synchronize()
+    return current, model
+
+
+def pyramid_cases(period) -> list:
+    """(what, image) of the pyramid stencils' edge cases."""
+    gen = torch.Generator(device=DEV).manual_seed(17)
+    scan0 = torch.from_numpy(period[0][0].astype(np.float32)).to(DEV) * 1e-3
+    H, W = scan0.shape
+
+    def uniform(h, w, lo, hi):
+        return lo + (hi - lo) * torch.rand((h, w), generator=gen, device=DEV)
+
+    cols = torch.arange(W, device=DEV)[None, :].expand(H, W)
+    jumps = 1.0 + 0.5 * cols / W + uniform(H, W, -0.01, 0.01)
+    jumps[:, W // 2:] += 0.2
+    jumps[H // 2:, W // 3:] += 1.5
+    jumps[uniform(H, W, 0.0, 1.0) < 0.1] = 0.0
+    # neighbours that differ from 1.5 m by 3 sigma (0.09 m) and its neighbours
+    gate = torch.tensor([0.0, 0.0899, 0.08999999, 0.09, 0.09000001, 0.0901, -0.09],
+                        device=DEV)
+    at_gate = 1.5 + gate[torch.randint(0, len(gate), (H, W), generator=gen, device=DEV)]
+    return [
+        ("zeros 640x480", torch.zeros((H, W), device=DEV)),
+        ("zeros 20x15", torch.zeros((15, 20), device=DEV)),
+        ("depth jumps of 0.2 and 1.5 m, 10 % holes", jumps),
+        ("neighbours at the 3-sigma gate", at_gate),
+        ("random depth 81x61", uniform(61, 81, 0.3, 8.0)),
+        ("random intensities 640x480", uniform(H, W, 0.0, 256.0).floor()),
+        ("random intensities 20x15", uniform(15, 20, 0.0, 256.0).floor()),
+        ("an 80x60 view of a scan frame (not contiguous)", scan0[4::8, 4::8]),
+        ("a 102x70 crop of a scan frame (not contiguous)", scan0[205:275, 268:370]),
+    ]
+
+
+def time_stencil(name, x) -> dict:
+    """A pyramid stencil's kernel time at `x`'s shape beside its bound and
+    the plain stencil's time, eager and replayed as a CUDA graph."""
+    kernel, plain = PYRAMID[name]
+    graph = torch.cuda.CUDAGraph()
+    plain(x)                                 # warm the allocator
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph):
+        plain(x)
+    torch.cuda.synchronize()
+    H, W = x.shape
+    if name == "compute_derivatives":
+        # read the image, write two; a pixel: 8 taps of two products and two
+        # sums, two truncations
+        n_bytes, ops = 3 * H * W * 4, (8 * 4 + 2) * H * W
+    else:
+        # read the image, write a quarter; an output pixel: 25 taps of at
+        # most six operations (the depth gate's subtract, abs and compare,
+        # product, two sums), a division
+        n_bytes, ops = (H * W + (H // 2) * (W // 2)) * 4, (25 * 6 + 2) * (H // 2) * (W // 2)
+    b_ms, b_by = bound(n_bytes, ops)
+    return dict(ms=time_ms(lambda: kernel(x), queue_first=True),
+                plain_ms=time_ms(lambda: plain(x), reps=5, warm=1),
+                plain_graph_ms=time_ms(graph.replay, reps=10, warm=1, queue_first=True),
+                bound_ms=b_ms, bound_by=b_by, bytes=n_bytes)
+
+
+def check_pyramid(cam, period, entries) -> None:
+    """The pyramid stencils against their plain versions, bit for bit, on
+    every level of every frame of one `scan` period (the current frame's and
+    the model's images) and on the edge cases; each kernel's time beside its
+    bound and the plain stencil's, eager and replayed as a CUDA graph, at
+    each level's shape."""
+    levels = engine_config(cam).num_pyramid_levels
+    current, model = pyramid_inputs(cam, period)
+    for kernel, _ in PYRAMID.values():
+        kernel.launches = 0
+    compared = dict.fromkeys(PYRAMID, 0)
+    differing = []
+
+    def hold(name, x, what):
+        """The kernel against the plain version on `x`; returns the plain
+        version's (first) image, the next level's input."""
+        kernel, plain = PYRAMID[name]
+        got, want = kernel(x), plain(x)
+        if name != "compute_derivatives":
+            got, want = (got,), (want,)
+        compared[name] += 1
+        if not all(bits_equal(g, w) for g, w in zip(got, want)):
+            differing.append((name, what, sum(
+                int((g.view(torch.int32) != w.view(torch.int32)).sum())
+                for g, w in zip(got, want) if g.shape == w.shape)))
+        return want[0]
+
+    def hold_levels(sides, what):
+        """Each side's depth and intensity down every level, the derivatives
+        of each level's intensity."""
+        for i, (depth_name, depth, inten) in enumerate(sides):
+            for lvl in range(levels):
+                hold("compute_derivatives", inten, f"{what(i)} L{lvl}")
+                if lvl + 1 < levels:
+                    depth = hold(depth_name, depth, f"{what(i)} L{lvl}")
+                    inten = hold("pyr_down_intensity", inten, f"{what(i)} L{lvl}")
+
+    hold_levels([("pyr_down_depth", d, g) for d, g in current], lambda i: f"frame {i}")
+    hold_levels([("pyr_down_gauss", d, g) for d, g in model],
+                lambda i: f"model of frame {i + 1}")
+    torch.cuda.synchronize()
+    launched = {k: w.launches for k, (w, _) in PYRAMID.items()}
+    H, W = current[0][0].shape
+    check(not differing and launched == compared,
+          f"pyramid: {len(current)} scan frames {W}x{H} and {len(model)} model views, "
+          f"every level, bit-identical to the plain versions ({compared} comparisons, "
+          f"launches {launched}; differing (stencil, where, pixels): {differing[:5]})")
+    depth_m, model_depth = current[-1][0], model[-1][0]
+    check(int((depth_m > 0).sum()) > 0.5 * depth_m.numel()
+          and int((model_depth > 0).sum()) > 0.5 * model_depth.numel(),
+          f"pyramid: the last frame's depth ({int((depth_m > 0).sum())} pixels) and its "
+          f"model's ({int((model_depth > 0).sum())}) are dense")
+    for what, img in pyramid_cases(period):
+        differing.clear()
+        for name in PYR_DOWNS:
+            x = img
+            for lvl in range(levels - 1):
+                x = hold(name, x, f"L{lvl}")
+                hold("compute_derivatives", x, f"{name} L{lvl + 1}")
+        hold("compute_derivatives", img, "L0")
+        torch.cuda.synchronize()
+        check(not differing,
+              f"pyramid on {what} {tuple(img.shape)}: every stencil, every level, "
+              f"bit-identical to the plain version (differing: {differing[:5]})")
+
+    # timed at each level's shape of the last frame's images
+    depth, inten = current[-1]
+    mdepth = model[-1][0]
+    timed = {name: {} for name in PYRAMID}
+    for lvl in range(levels):
+        tag = f"{inten.shape[1]}x{inten.shape[0]}"
+        timed["compute_derivatives"][tag] = time_stencil("compute_derivatives", inten)
+        if lvl + 1 < levels:
+            timed["pyr_down_depth"][tag] = time_stencil("pyr_down_depth", depth)
+            timed["pyr_down_gauss"][tag] = time_stencil("pyr_down_gauss", mdepth)
+            timed["pyr_down_intensity"][tag] = time_stencil("pyr_down_intensity", inten)
+            depth, mdepth = pyr_down_depth(depth), pyr_down_gauss(mdepth)
+            inten = pyr_down_intensity(inten)
+    for name, by_level in timed.items():
+        entries[name] = dict(
+            name=name, route="cuda", source="elasticfusion_tpu_torch/csrc/pyramid.cu",
+            replaces="none: port-only (the reference's plain-JAX stencils, fused by XLA)",
+            max_abs_err=0.0, library_ms=None, levels=by_level,
+            **by_level[f"{W}x{H}"])
+        for tag, lv in by_level.items():
+            print(f"  {name} {tag}: kernel {lv['ms']:.4f} ms, plain eager "
+                  f"{lv['plain_ms']:.3f} ms, plain replayed as a graph "
+                  f"{lv['plain_graph_ms']:.4f} ms, bound {lv['bound_ms']:.5f} ms by "
+                  f"{lv['bound_by']}", flush=True)
+
+
 WRAPPERS = {"gram_outer": gram_outer, "icp_step": icp_step,
             "rgb_residual": compute_rgb_residual, "rgb_step": rgb_step,
             "so3_step": so3_step, "so3_update": so3_update, "gn_update": gn_update,
             "splat_resolve": splat_resolve, "fuse_window": fuse_window,
-            "bilateral": bilateral_filter}
+            "bilateral": bilateral_filter, "pyr_down_depth": pyr_down_depth,
+            "pyr_down_gauss": pyr_down_gauss, "pyr_down_intensity": pyr_down_intensity,
+            "compute_derivatives": compute_derivatives}
 # kernels that the main path no longer runs (their caller was fused)
 OFF_THE_PATH = {"gram_outer"}
 # the launches of icp_step's fixed-point form, counted apart (`fx16_tables`)
@@ -1098,7 +1302,11 @@ KERNEL_SYMBOLS = {"gram_outer": "gram_kernel", "icp_step": "icp_step_kernel",
                   "rgb_residual": "rgb_residual_kernel", "rgb_step": "rgb_step_kernel",
                   "so3_step": "so3_step_kernel", "so3_update": "so3_update_kernel",
                   "gn_update": "gn_update_kernel", "splat_resolve": "splat_resolve_kernel",
-                  "fuse_window": "fuse_window_kernel", "bilateral": "bilateral_kernel"}
+                  "fuse_window": "fuse_window_kernel", "bilateral": "bilateral_kernel",
+                  "pyr_down_depth": "pyr_down_depth_kernel",
+                  "pyr_down_gauss": "pyr_down_gauss_kernel",
+                  "pyr_down_intensity": "pyr_down_intensity_kernel",
+                  "compute_derivatives": "derivatives_kernel"}
 
 
 def _names_kernel(trace_name: str, symbol: str) -> bool:

@@ -41,7 +41,8 @@ _COMMON_FLAGS = [
 # by float comparisons; without FMA contraction every operation rounds as the
 # plain PyTorch versions' do, so the decisions agree (the odometry steps spell
 # out the FMAs of their matrix products and Gram sums); the bilateral filter
-# is bit-identical to its plain version for the same reason.  The Gram sum
+# and the pyramid stencils are bit-identical to their plain versions for the
+# same reason.  The Gram sum
 # alone has no decisions and keeps its FMAs.
 SOURCES: Dict[str, List[str]] = {
     "gram": [],
@@ -50,6 +51,7 @@ SOURCES: Dict[str, List[str]] = {
     "splat_resolve": ["-fmad=false"],
     "fuse_window": ["-fmad=false"],
     "bilateral": ["-fmad=false"],
+    "pyramid": ["-fmad=false"],
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

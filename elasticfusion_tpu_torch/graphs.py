@@ -38,7 +38,7 @@ from typing import Callable, Dict, List, NamedTuple, Optional
 
 import torch
 
-from .ops import bilateral, fuse_window, gram, odometry, splat_resolve
+from .ops import bilateral, fuse_window, gram, odometry, pyramid, splat_resolve
 
 # every kernel wrapper's launch counter: (wrapper, attribute)
 COUNTERS = (
@@ -53,6 +53,10 @@ COUNTERS = (
     (splat_resolve.splat_resolve, "launches"),
     (fuse_window.fuse_window, "launches"),
     (bilateral.bilateral_filter, "launches"),
+    (pyramid.pyr_down_depth, "launches"),
+    (pyramid.pyr_down_gauss, "launches"),
+    (pyramid.pyr_down_intensity, "launches"),
+    (pyramid.compute_derivatives, "launches"),
 )
 
 

@@ -19,7 +19,7 @@ import ctypes
 import torch
 
 from .._build import check_launch, kernel_function
-from .preprocess import _Padded
+from .pyramid import _Padded
 
 SIGMA_SPACE2_INV_HALF = 0.024691358   # 1 / (2 * 4.5^2), per squared pixel
 SIGMA_COLOR2_INV_HALF = 0.000555556   # 1 / (2 * 30^2), per squared mm

@@ -13,6 +13,7 @@ from elasticfusion_tpu.ops import preprocess as ref_pp
 from elasticfusion_tpu.utils.synthetic import make_scene, pose_from_xyzrpy, render_frame
 from elasticfusion_tpu_torch.ops import bilateral as port_bf
 from elasticfusion_tpu_torch.ops import preprocess as port_pp
+from elasticfusion_tpu_torch.ops import pyramid as port_pyr
 
 
 # every uint16 depth value, as a 256x256 image
@@ -147,3 +148,56 @@ def test_borders_are_zero_filled_shifts():
     flat = np.full((8, 10), 50.0, np.float32)
     down = nn(port_pp.pyr_down_intensity(tt(flat)))
     np.testing.assert_allclose(down, 50.0, rtol=1e-6)   # masked weights renormalise
+
+
+PYRAMID_STENCILS = ("pyr_down_depth", "pyr_down_gauss", "pyr_down_intensity",
+                    "compute_derivatives")
+
+
+def _pyramid_image(name, shape, kind):
+    """A depth image in metres with holes and jumps of 0.2 and 1.5 m (beyond
+    the depth pyrDown's 3-sigma gate of 0.09 m), or its 0..255 intensity
+    stand-in for the intensity stencils; or all zeros."""
+    H, W = shape
+    if kind == "zeros":
+        return torch.zeros(shape)
+    rng = np.random.default_rng(H * 1000 + W)
+    depth = (1.0 + 0.5 * np.arange(W)[None, :] / W
+             + 0.01 * rng.standard_normal((H, W))).astype(np.float32)
+    depth[:, W // 2:] += 0.2
+    depth[H // 2:, W // 3:] += 1.5
+    depth[rng.random((H, W)) < 0.1] = 0.0
+    if name in ("pyr_down_intensity", "compute_derivatives"):
+        depth = np.floor(depth * 80.0)
+    return tt(depth)
+
+
+@pytest.mark.parametrize("kind", ["depth jumps", "zeros"])
+@pytest.mark.parametrize("shape", [(480, 640), (240, 320), (120, 160), (15, 20), (61, 81)],
+                         ids=lambda s: f"{s[1]}x{s[0]}")
+@pytest.mark.parametrize("name", PYRAMID_STENCILS)
+def test_pyramid_stencil_on_the_cpu_is_its_plain_version(name, shape, kind):
+    """Each pyramid stencil takes its plain version for a CPU tensor, bit for
+    bit, and launches nothing: at every level's size of a 640x480 frame, at
+    odd sizes, across depth jumps and on an all-zero image."""
+    img = _pyramid_image(name, shape, kind)
+    fn = getattr(port_pyr, name)
+    before = fn.launches
+    got, plain = fn(img), getattr(port_pyr, name + "_plain")(img)
+    if name != "compute_derivatives":
+        got, plain = (got,), (plain,)
+        assert got[0].shape == (shape[0] // 2, shape[1] // 2)
+    for g, p in zip(got, plain):
+        assert g.dtype == torch.float32
+        assert torch.equal(g.view(torch.int32), p.view(torch.int32))
+    assert fn.launches == before
+    if kind != "zeros":     # the images exercise the stencils
+        assert float(plain[0].abs().max()) > 0
+
+
+@pytest.mark.parametrize("name", PYRAMID_STENCILS)
+def test_pyramid_stencils_want_one_image(name):
+    """A batch of images, or one with channels, raises instead of being read
+    as one image."""
+    with pytest.raises(ValueError, match=r"wants \[H,W\]"):
+        getattr(port_pyr, name)(torch.zeros((2, 12, 16)))

@@ -21,13 +21,14 @@ from elasticfusion_tpu_torch.ops import bilateral as bilateral_mod
 from elasticfusion_tpu_torch.ops import fuse_window as fuse_window_mod
 from elasticfusion_tpu_torch.ops import gram as gram_mod
 from elasticfusion_tpu_torch.ops import odometry as odometry_mod
+from elasticfusion_tpu_torch.ops import pyramid as pyramid_mod
 from elasticfusion_tpu_torch.ops import splat_resolve as splat_resolve_mod
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "elasticfusion_tpu_torch")
 FORBIDDEN = {"jax", "jaxlib", "elasticfusion_tpu"}
 WRAPPER_MODULES = (gram_mod, odometry_mod, splat_resolve_mod, fuse_window_mod,
-                   bilateral_mod)
+                   bilateral_mod, pyramid_mod)
 
 
 def _python_sources():
@@ -118,11 +119,13 @@ WRAPPERS = [(m, *call) for m in WRAPPER_MODULES for call in _kernel_function_cal
 def test_the_port_has_seven_kernel_wrappers():
     """Seven kernels of the Pallas sites' paths, the two tracker updates
     (csrc/tracker_update.cu) that keep the tracker's loops on the card, and
-    the bilateral filter (csrc/bilateral.cu), which XLA fuses for the
-    reference."""
+    the preprocess stencils that XLA fuses for the reference: the bilateral
+    filter (csrc/bilateral.cu), and the three pyrDowns and the derivatives
+    (csrc/pyramid.cu)."""
     assert sorted(w[1] for w in WRAPPERS) == [
-        "bilateral_filter", "compute_rgb_residual", "fuse_window", "gn_update", "gram_outer",
-        "icp_step", "rgb_step", "so3_step", "so3_update", "splat_resolve"]
+        "bilateral_filter", "compute_derivatives", "compute_rgb_residual", "fuse_window",
+        "gn_update", "gram_outer", "icp_step", "pyr_down_depth", "pyr_down_gauss",
+        "pyr_down_intensity", "rgb_step", "so3_step", "so3_update", "splat_resolve"]
 
 
 @pytest.mark.parametrize("name", sorted(_build.SOURCES))
@@ -175,6 +178,10 @@ def _meta_calls():
     return {
         "gram_outer": lambda: gram_mod.gram_outer(_meta(7, 64)),
         "bilateral_filter": lambda: bilateral_mod.bilateral_filter(_meta(H, W)),
+        "pyr_down_depth": lambda: pyramid_mod.pyr_down_depth(_meta(H, W)),
+        "pyr_down_gauss": lambda: pyramid_mod.pyr_down_gauss(_meta(H, W)),
+        "pyr_down_intensity": lambda: pyramid_mod.pyr_down_intensity(_meta(H, W)),
+        "compute_derivatives": lambda: pyramid_mod.compute_derivatives(_meta(H, W)),
         "splat_resolve": lambda: splat_resolve_mod.splat_resolve(
             _meta(13, H, W), 5.0, 5.0, 3.0, 2.0),
         "fuse_window": lambda: fuse_window_mod.fuse_window(
