@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: correctness checks
+only (the benchmark, `python3 efbench/run.py`, measures the frame rate).
 
-    python3 chip_smoke.py            # all phases, exit code 0 on success
-    python3 chip_smoke.py --profile  # plus a torch.profiler table of 5 frames
+    python3 chip_smoke.py                  # all phases, exit code 0 on success
     python3 chip_smoke.py --kernels-only   # phases 1-3 only, no result line
 
 Phases (any failure exits non-zero; nothing falls back to the CPU):
@@ -40,13 +40,11 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      640x480 synthetic sweep (replayed as CUDA graphs), twice, the first
      under torch.profiler: every kernel's launches on the card counted by
      name in that trace (every kernel of the path launched, `gram_outer` not
-     at all, the tracker's fixed sequence on every tracked frame) and the
-     wrappers' own calls (eager and captured frames), pose error against the
-     known poses, surfel count, coverage, bit-identical repeat, ms/frame of
-     the second run, one host read a frame, peak memory;
-  5. the loop-closure path at 640x480, each run read with the counts set to 0
-     just before it: (a) the same sweep with `closeLoops=True` (the steady
-     per-frame cost of the default configuration), twice; (b) a there-and-back
+     at all, the tracker's fixed sequence on every tracked frame), pose
+     error against the known poses, surfel count, coverage, bit-identical
+     repeat, one host read a frame, peak memory;
+  5. the loop-closure path at 640x480, each run's launches counted over it:
+     (a) the same sweep with `closeLoops=True`, twice; (b) a there-and-back
      run whose return closes loops locally (model-to-model + deformation),
      twice, with the host time and reads of every closure; (c) fern
      retrieval with the fern-resolution ICP; (d) relocalization after a
@@ -56,52 +54,58 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      eagerly on a copy of its state and inputs, its finish vector held
      bit-identical to the replay's) and of the fern ICP (80x60), with the
      launches and reads of each caller;
-  6. the pipelined engine and the slice's entry points at 640x480, each run
-     read with the counts set to 0 just before it: (a) `bench.py`'s
-     configuration (`closeLoops`, `pipeline_depth=2`) on the sweep, twice,
-     bit-identical to phase 5 (a) at depth 0, with ms/frame, host reads,
-     device kernels and ms, the host's launch calls and the idle share a
-     frame, and the tracker's launches in a profiled window of 5 frames;
-     (b) the there-and-back run at
-     depth 2 against phase 5 (b) (the reference's pipeline-test bounds),
-     twice; (c) `run_slam` on a `.klg` of the sweep, its trajectory equal to
-     `Engine.process_frame`'s, then `report`; (d) a checkpoint after frame
-     12 of (b), restored on the card (state exact, one more `splat_resolve`
-     on the card, in a trace, for the regenerated prediction, tracks on); (e) external poses; (f)
-     one configuration of `eval_suite -quick -synth-only`, into a temporary
+  6. the pipelined engine and the slice's entry points at 640x480, each run's
+     launches counted over it: (a) `bench.py`'s configuration (`closeLoops`,
+     `pipeline_depth=2`) on the sweep, twice, bit-identical to phase 5 (a)
+     at depth 0, with host reads, device kernels and the host's launch calls
+     a frame, and the tracker's launches on the card in a profiled window of
+     5 frames; (b) the there-and-back run at depth 2 against phase 5 (b)
+     (the reference's pipeline-test bounds), twice; (c) `run_slam` on a
+     `.klg` of the sweep, its trajectory equal to `Engine.process_frame`'s,
+     then `report`; (d) a checkpoint after frame 12 of (b), restored on the
+     card (state exact, one more `splat_resolve` on the card, in a trace,
+     for the regenerated prediction, tracks on); (e) external poses; (f) one
+     configuration of `eval_suite -quick -synth-only`, into a temporary
      directory;
   7. the slice of the sharded map and multi-process runs at 640x480, each
-     run read with the counts set to 0 just before it: (a) the native `.klg`
-     decoder on the committed JPEG-colour log (depth bit-identical to the
-     Python zlib path, colour against the committed PIL decode) and
-     `run_slam` on it; (b) `slam_step` at the default `EngineConfig` (fx16
-     clean) on 12 sweep frames; (c) the sharded engine on `bench.py`'s
-     configuration at depth 0 and 2 through one growth: S = 1 bit-identical
-     to one device, S = 2 on one card within the reference's bounds, K2 and
-     K3 held against their plain versions at the sharded callers, with
-     collectives, launches and ms per frame; (d) loop closures on sub-maps;
-     (e) two `run_slam -mesh 2` ranks over gloo on the card, their
-     trajectories equal to the one-process run's;
-  8. the last modules of the port, each run read with the counts set to 0
-     just before it: (a) `Engine.process_frame` with `fx16_tables` on 12
-     sweep frames (every ICP launch of the fixed-point form), and one
-     640x480 solve with the tables on against off; (b) `tools/scaling_bench`
-     (`-n 2 -cap 20 -frames 5` and `-crossover -n 2 -cap 22 -frames 3`, both
-     sub-maps on this card): the reference's keys, the collectives of the
-     group's calls, one sub-map bit-identical to the one-device step;
+     run's launches counted over it: (a) the native `.klg` decoder on the
+     committed JPEG-colour log (depth bit-identical to the Python zlib path,
+     colour against the committed PIL decode) and `run_slam` on it; (b)
+     `slam_step` at the default `EngineConfig` (fx16 clean) on 12 sweep
+     frames; (c) the sharded engine on `bench.py`'s configuration at depth 0
+     and 2 through one growth: S = 1 bit-identical to one device, S = 2 on
+     one card within the reference's bounds, K2 and K3 held against their
+     plain versions at the sharded callers, with collectives and launches
+     per frame; (d) loop closures on sub-maps; (e) two `run_slam -mesh 2`
+     ranks over gloo on the card, their trajectories equal to the
+     one-process run's;
+  8. the last modules of the port, each run's launches counted over it: (a)
+     `Engine.process_frame` with `fx16_tables` on 12 sweep frames (every ICP
+     launch of the fixed-point form, in a trace), and one 640x480 solve with
+     the tables on against off; (b) `tools/scaling_bench` (`-n 2 -cap 20
+     -frames 5` and `-crossover -n 2 -cap 22 -frames 3`, both sub-maps on
+     this card): the reference's keys, the collectives of the group's calls,
+     one sub-map bit-identical to the one-device step;
   9. the device-resident frame: over phase 4's sweep and over 6 (a)'s
      configuration at depth 2, every replayed frame held bit-identical to
      `_frame_main` called eagerly on a copy of the same state and inputs,
-     one host read a frame, the replays, the wrapper launches each capture
-     recorded and the capture time of every static key;
+     one host read a frame, the replays and the capture time of every
+     static key;
  10. one JSON line `{"kernels": [...]}` (entries with `caller` are the
      model-to-model and fern-ICP runs of the tracking steps, the sharded
      callers of K2 / K3 and the fixed-point `icp_step`).  `launches`: the
-     card's launches in phase 4's trace; of a caller, the wrapper calls of
-     its eager runs (the model-to-model solve: 5 (b)'s eager copies; the
-     fern ICP, the sharded callers: eager) or, for the fixed-point
-     `icp_step`, the launches in 8 (a)'s trace;
+     card's launches in phase 4's trace; of a caller, the launcher calls of
+     its eager runs as this script counts them (the model-to-model solve:
+     5 (b)'s eager copies; the fern ICP, the sharded callers: eager) or, for
+     the fixed-point `icp_step`, the launches in 8 (a)'s trace;
  11. last line `{"ok": true, "device": {...}}`.
+
+Launches are counted two ways, both from outside the package.  On the card,
+by kernel name in a profiler trace (`traced`): replays included, a capture
+not.  On the host, by `LaunchCalls`, which wraps the `kernel_function` of
+every `elasticfusion_tpu_torch.ops` module while it is entered and counts
+the calls of the launchers it hands out: the eager frames' and those a
+capture records (a replay calls no launcher).
 """
 
 from __future__ import annotations
@@ -125,7 +129,6 @@ if not torch.cuda.is_available():
 
 from elasticfusion_tpu_torch import _build, _device  # noqa: E402
 from elasticfusion_tpu_torch import engine as engine_mod  # noqa: E402
-from elasticfusion_tpu_torch import graphs as graphs_mod  # noqa: E402
 from elasticfusion_tpu_torch import ferns as ferns_mod  # noqa: E402
 from elasticfusion_tpu_torch import tracking as tracking_mod  # noqa: E402
 from elasticfusion_tpu_torch.config import CameraConfig, EngineConfig  # noqa: E402
@@ -394,15 +397,15 @@ class StepRecorder:
 
 class CallerCounts:
     """Count, per caller of the tracker (model-to-model, fern ICP), its eager
-    runs, the host reads made inside them and the launches of every kernel
-    made inside them.  A run inside a graph capture is not counted (it
-    records the launches its replays make, which call no Python: a trace
-    counts those)."""
+    runs, the host reads made inside them and the launcher calls of every
+    kernel made inside them (`LaunchCalls`).  A run inside a graph capture
+    is not counted (it records the launches its replays make, which call no
+    Python: a trace counts those)."""
 
     def __init__(self):
         self.runs = {"m2m": 0, "fern_icp": 0}
         self.reads = {"m2m": 0, "fern_icp": 0}
-        self.launches = {c: {k: 0 for k in WRAPPERS} for c in self.runs}
+        self.launches = {c: dict.fromkeys(KERNEL_SYMBOLS, 0) for c in self.runs}
 
     def _wrap(self, caller, fn):
         def wrapper(*args, **kwargs):
@@ -412,17 +415,17 @@ class CallerCounts:
                     return fn(*args, **kwargs)
                 finally:
                     CALLER.pop()
-            before = {k: w.launches for k, w in WRAPPERS.items()}
             r0 = _device.host_reads
             CALLER.append(caller)
             try:
-                return fn(*args, **kwargs)
+                with LaunchCalls() as calls:
+                    return fn(*args, **kwargs)
             finally:
                 CALLER.pop()
                 self.runs[caller] += 1
                 self.reads[caller] += _device.host_reads - r0
-                for k, w in WRAPPERS.items():
-                    self.launches[caller][k] += w.launches - before[k]
+                for k in KERNEL_SYMBOLS:
+                    self.launches[caller][k] += calls.n[k]
         return wrapper
 
     def __enter__(self):
@@ -1045,18 +1048,19 @@ def check_bilateral(cam, period, entries) -> None:
     cfg = engine_config(cam)
     max_depth, radius = cfg.max_depth_processed, cfg.bilateral_radius
     scan = [torch.from_numpy(d.astype(np.float32)).to(DEV) for d, _ in period]
-    bilateral_filter.launches = 0
     differing = []
-    for i, d in enumerate(scan):
-        got = bilateral_filter(d, max_depth, radius)
-        plain = bilateral_filter_plain(d, max_depth, radius)
-        n_bad = int((got != plain).sum())
-        if n_bad:
-            differing.append((i, n_bad, float((got - plain).abs().max())))
+    with LaunchCalls() as calls:
+        for i, d in enumerate(scan):
+            got = bilateral_filter(d, max_depth, radius)
+            plain = bilateral_filter_plain(d, max_depth, radius)
+            n_bad = int((got != plain).sum())
+            if n_bad:
+                differing.append((i, n_bad, float((got - plain).abs().max())))
     torch.cuda.synchronize()
-    check(not differing and bilateral_filter.launches == len(scan),
+    launched = calls.n["bilateral"]
+    check(not differing and launched == len(scan),
           f"bilateral: {len(scan)} scan frames {tuple(scan[0].shape)} at radius {radius} "
-          f"bit-identical to the plain version ({bilateral_filter.launches} launches; "
+          f"bit-identical to the plain version ({launched} launches; "
           f"differing (frame, pixels, max |err|): {differing[:5]})")
     filt = bilateral_filter(scan[0], max_depth, radius)
     check(int((filt > 0).sum()) > 0.5 * filt.numel()
@@ -1201,8 +1205,6 @@ def check_pyramid(cam, period, entries) -> None:
     each level's shape."""
     levels = engine_config(cam).num_pyramid_levels
     current, model = pyramid_inputs(cam, period)
-    for kernel, _ in PYRAMID.values():
-        kernel.launches = 0
     compared = dict.fromkeys(PYRAMID, 0)
     differing = []
 
@@ -1230,11 +1232,12 @@ def check_pyramid(cam, period, entries) -> None:
                     depth = hold(depth_name, depth, f"{what(i)} L{lvl}")
                     inten = hold("pyr_down_intensity", inten, f"{what(i)} L{lvl}")
 
-    hold_levels([("pyr_down_depth", d, g) for d, g in current], lambda i: f"frame {i}")
-    hold_levels([("pyr_down_gauss", d, g) for d, g in model],
-                lambda i: f"model of frame {i + 1}")
+    with LaunchCalls() as calls:
+        hold_levels([("pyr_down_depth", d, g) for d, g in current], lambda i: f"frame {i}")
+        hold_levels([("pyr_down_gauss", d, g) for d, g in model],
+                    lambda i: f"model of frame {i + 1}")
     torch.cuda.synchronize()
-    launched = {k: w.launches for k, (w, _) in PYRAMID.items()}
+    launched = {k: calls.n[k] for k in PYRAMID}
     H, W = current[0][0].shape
     check(not differing and launched == compared,
           f"pyramid: {len(current)} scan frames {W}x{H} and {len(model)} model views, "
@@ -1284,29 +1287,88 @@ def check_pyramid(cam, period, entries) -> None:
                   f"{lv['bound_by']}", flush=True)
 
 
-WRAPPERS = {"gram_outer": gram_outer, "icp_step": icp_step,
-            "rgb_residual": compute_rgb_residual, "rgb_step": rgb_step,
-            "so3_step": so3_step, "so3_update": so3_update, "gn_update": gn_update,
-            "splat_resolve": splat_resolve, "fuse_window": fuse_window,
-            "bilateral": bilateral_filter, "pyr_down_depth": pyr_down_depth,
-            "pyr_down_gauss": pyr_down_gauss, "pyr_down_intensity": pyr_down_intensity,
-            "compute_derivatives": compute_derivatives}
 # kernels that the main path no longer runs (their caller was fused)
 OFF_THE_PATH = {"gram_outer"}
 # the launches of icp_step's fixed-point form, counted apart (`fx16_tables`)
 ICP_FX16 = "icp_step fx16"
-# every wrapper's kernel function, as a profiler trace names it: a replayed
-# CUDA graph calls no wrapper, so the launches its replays make on the card
-# are counted by name in a trace of the run
-KERNEL_SYMBOLS = {"gram_outer": "gram_kernel", "icp_step": "icp_step_kernel",
-                  "rgb_residual": "rgb_residual_kernel", "rgb_step": "rgb_step_kernel",
-                  "so3_step": "so3_step_kernel", "so3_update": "so3_update_kernel",
-                  "gn_update": "gn_update_kernel", "splat_resolve": "splat_resolve_kernel",
-                  "fuse_window": "fuse_window_kernel", "bilateral": "bilateral_kernel",
-                  "pyr_down_depth": "pyr_down_depth_kernel",
-                  "pyr_down_gauss": "pyr_down_gauss_kernel",
-                  "pyr_down_intensity": "pyr_down_intensity_kernel",
-                  "compute_derivatives": "derivatives_kernel"}
+# every kernel, by the name the checks and the `kernels` line give it: its
+# launcher (the symbol its wrapper asks `kernel_function` for, whose calls
+# `LaunchCalls` counts) and its kernel function (the name a profiler trace
+# gives its launches on the card: a replayed CUDA graph calls no launcher)
+KERNEL_SYMBOLS = {
+    "gram_outer": ("ef_gram_outer", "gram_kernel"),
+    "icp_step": ("ef_icp_step", "icp_step_kernel"),
+    "rgb_residual": ("ef_rgb_residual", "rgb_residual_kernel"),
+    "rgb_step": ("ef_rgb_step", "rgb_step_kernel"),
+    "so3_step": ("ef_so3_step", "so3_step_kernel"),
+    "so3_update": ("ef_so3_update", "so3_update_kernel"),
+    "gn_update": ("ef_gn_update", "gn_update_kernel"),
+    "splat_resolve": ("ef_splat_resolve", "splat_resolve_kernel"),
+    "fuse_window": ("ef_fuse_window", "fuse_window_kernel"),
+    "bilateral": ("ef_bilateral", "bilateral_kernel"),
+    "pyr_down_depth": ("ef_pyr_down_depth", "pyr_down_depth_kernel"),
+    "pyr_down_gauss": ("ef_pyr_down_gauss", "pyr_down_gauss_kernel"),
+    "pyr_down_intensity": ("ef_pyr_down_intensity", "pyr_down_intensity_kernel"),
+    "compute_derivatives": ("ef_derivatives", "derivatives_kernel"),
+}
+KERNEL_OF_LAUNCHER = {launcher: k for k, (launcher, _) in KERNEL_SYMBOLS.items()}
+# the argument of `ef_icp_step` that only its fixed-point form passes (the
+# table's ranges)
+ICP_FX16_ARG = 6
+
+
+def kernel_modules() -> list:
+    """Every `elasticfusion_tpu_torch.ops` module that imports `kernel_function`."""
+    import importlib
+    import pkgutil
+
+    from elasticfusion_tpu_torch import ops
+
+    mods = [importlib.import_module(f"{ops.__name__}.{m.name}")
+            for m in pkgutil.iter_modules(ops.__path__)]
+    return [m for m in mods if getattr(m, "kernel_function", None) is _build.kernel_function]
+
+
+class LaunchCalls:
+    """While entered, `n` counts the launcher calls of every kernel by name
+    (ICP_FX16: those of icp_step's fixed-point form): the `kernel_function`
+    of every wrapper module is replaced by one whose launchers count their
+    calls.  Entered counts nest; each counts every call made while it is
+    entered, eager or recorded by a graph capture (a replay calls no
+    launcher: `traced` counts it on the card)."""
+
+    _open: list = []     # the counts of every entered LaunchCalls
+    _modules: list = []
+
+    def __init__(self):
+        self.n = dict.fromkeys([*KERNEL_SYMBOLS, ICP_FX16], 0)
+
+    @staticmethod
+    def _kernel_function(name, symbol, argtypes):
+        fn = _build.kernel_function(name, symbol, argtypes)
+        kernel = KERNEL_OF_LAUNCHER[symbol]
+
+        def launch(*args):
+            fx16 = kernel == "icp_step" and args[ICP_FX16_ARG] is not None
+            for n in LaunchCalls._open:
+                n[kernel] += 1
+                n[ICP_FX16] += fx16
+            return fn(*args)
+        return launch
+
+    def __enter__(self):
+        if not LaunchCalls._open:
+            LaunchCalls._modules = kernel_modules()
+            for m in LaunchCalls._modules:
+                m.kernel_function = LaunchCalls._kernel_function
+        LaunchCalls._open.append(self.n)
+        return self
+
+    def __exit__(self, *exc):
+        LaunchCalls._open.remove(self.n)
+        if not LaunchCalls._open:
+            for m in LaunchCalls._modules:
+                m.kernel_function = _build.kernel_function
 
 
 def _names_kernel(trace_name: str, symbol: str) -> bool:
@@ -1317,8 +1379,8 @@ def _names_kernel(trace_name: str, symbol: str) -> bool:
 
 
 def trace_launches(prof) -> tuple:
-    """The launches on the card in a profiler trace: of every wrapper's
-    kernel, by wrapper name (ICP_FX16: icp_step's fixed-point instance), and
+    """The launches on the card in a profiler trace: of every kernel of
+    KERNEL_SYMBOLS, by name (ICP_FX16: icp_step's fixed-point instance), and
     of all kernels."""
     from collections import Counter
 
@@ -1328,9 +1390,9 @@ def trace_launches(prof) -> tuple:
     # 200k kernels takes half a minute
     names = Counter(e.name() for e in prof.profiler.kineto_results.events()
                     if e.device_type() == DeviceType.CUDA)
-    by_name = dict.fromkeys([*WRAPPERS, ICP_FX16], 0)
+    by_name = dict.fromkeys([*KERNEL_SYMBOLS, ICP_FX16], 0)
     for name, n in names.items():
-        for k, sym in KERNEL_SYMBOLS.items():
+        for k, (_, sym) in KERNEL_SYMBOLS.items():
             if _names_kernel(name, sym):
                 by_name[k] += n
                 if k == "icp_step" and ("<true>" in name or "ILb1E" in name):
@@ -1339,9 +1401,9 @@ def trace_launches(prof) -> tuple:
 
 
 def run_sweep(cam, frames, cfg=None):
-    """The main path once: returns per-frame poses and counts, ms/frame of
-    the timed frames, host reads per frame finished in the timed window
-    (beside kept keyframes' views) and the dense coverage."""
+    """The main path once: returns per-frame poses and counts, host reads
+    per frame finished after the N_WARM warm-up frames (beside kept
+    keyframes' views) and the dense coverage."""
     eng = Engine(cfg or engine_config(cam), device=DEV)
     poses, counts = [], []
     for i in range(N_WARM):
@@ -1353,46 +1415,39 @@ def run_sweep(cam, frames, cfg=None):
     reads0 = _device.host_reads
     kf0 = len(eng.ferns.frames) if eng.ferns else 0
     finished = N_BENCH + len(eng._inflight)   # the frames the window finishes
-    t0 = time.perf_counter()
-    timed = []
+    steady = []
     for i in range(N_WARM, N_WARM + N_BENCH):
         d, r = frames[i]
-        timed.append(eng.process_frame(r, d, timestamp=i))
+        steady.append(eng.process_frame(r, d, timestamp=i))
     eng.flush()                   # frames still in flight finish in the window
     torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) / N_BENCH * 1e3
     # host reads per finished frame; a kept fern keyframe reads its
     # decimated views: one read more
     keyframes = (len(eng.ferns.frames) if eng.ferns else 0) - kf0
     reads = (_device.host_reads - reads0 - keyframes) / finished
-    for res in timed:
+    for res in steady:
         poses.append(res.T_wc)
         counts.append(res.surfel_count)
-    return dict(poses=poses, counts=counts, ms=ms, reads=reads,
+    return dict(poses=poses, counts=counts, reads=reads,
                 traj=np.stack([T for _, T in eng.poses]),
                 dense=float(eng._dense_dev), capacity=eng.map.capacity, engine=eng)
 
 
 def counted(fn):
-    """`fn(None)` with every kernel's count set to 0 just before it and read
-    just after it.  Returns (fn's result, launch calls by kernel, host reads
-    made in it).  A wrapper counts its eager launches and those a graph
-    capture records; a replay calls no wrapper (`traced` counts it)."""
-    for w in WRAPPERS.values():
-        w.launches = 0
-    icp_step.launches_fx16 = 0
+    """`fn()` with the launcher calls of every kernel and the host reads
+    counted over it.  Returns (fn's result, launcher calls by kernel, host
+    reads made in it)."""
     reads0 = _device.host_reads
-    out = fn(None)
-    launches = {k: w.launches for k, w in WRAPPERS.items()}
-    launches[ICP_FX16] = icp_step.launches_fx16
-    return out, launches, _device.host_reads - reads0
+    with LaunchCalls() as calls:
+        out = fn()
+    return out, calls.n, _device.host_reads - reads0
 
 
 def traced(fn):
     """`counted(fn)` under torch.profiler (the card's activity only).
-    Returns (fn's result, launch calls by kernel, host reads, launches on the
-    card by kernel, counted by name in the run's trace: replays included,
-    a capture's recorded launches not)."""
+    Returns (fn's result, launcher calls by kernel, host reads, launches on
+    the card by kernel, counted by name in the run's trace: replays
+    included, a capture's recorded launches not)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1421,7 +1476,7 @@ def check_frame_launches(what, launches, cfg, tracked, solves=1):
     and rgb_step sum(gn_iterations) times each, gn_update two more): the
     frame's own and, on a one-device map with closeLoops, the predicated
     model-to-model solve.  `launches` are a trace's launches on the card
-    over every tracked frame, or the wrappers' calls over the frames whose
+    over every tracked frame, or the launcher calls over the frames whose
     Python ran (`FrameRunner.frames_run`: eager and captured)."""
     gn, so3 = sum(cfg.gn_iterations), cfg.so3_iterations
     want = dict(so3_step=so3 * tracked, so3_update=(so3 + 1) * tracked,
@@ -1440,7 +1495,7 @@ def pose_error(T_est, T_gt):
             float(np.degrees(np.arccos(np.clip((np.trace(dR) - 1) / 2, -1, 1)))))
 
 
-FRAME_KERNELS = set(WRAPPERS) - OFF_THE_PATH
+FRAME_KERNELS = set(KERNEL_SYMBOLS) - OFF_THE_PATH
 
 
 def check_sweep(what, run, gt_poses):
@@ -1462,18 +1517,13 @@ def phase_main_path(cam, frames, gt_poses):
     global _BLOCKER
     _BLOCKER = None          # phase 3's scratch must not count as the path's memory
     torch.cuda.reset_peak_memory_stats()
-    run, calls, _, launches = traced(lambda _: run_sweep(cam, frames))
+    run, _, _, launches = traced(lambda: run_sweep(cam, frames))
     peak = torch.cuda.max_memory_allocated()
     tracked = N_WARM + N_BENCH - 1
     cfg = engine_config(cam)
     check_launched("main path (launches on the card, trace)", launches, FRAME_KERNELS,
                    per=tracked)
     check_frame_launches("main path (launches on the card, trace)", launches, cfg, tracked)
-    runner = run["engine"].runner
-    check_launched("main path (wrapper calls)", calls, FRAME_KERNELS)
-    check_frame_launches(f"main path (wrapper calls: {runner.frames_run} frames eager or "
-                         f"captured, {sum(runner.replays_of.values())} replayed)",
-                         calls, cfg, runner.frames_run)
     check(run["reads"] == 1.0, f"main path: {run['reads']:.2f} host reads a frame (1: its "
           f"finish vector)")
 
@@ -1487,12 +1537,9 @@ def phase_main_path(cam, frames, gt_poses):
     check(np.array_equal(poses, np.stack(again["poses"]))
           and run["counts"] == again["counts"],
           "a second identical run gives bit-identical poses and counts")
-
-    print(f"ms_per_frame {again['ms']:.2f} (the first run, traced: {run['ms']:.2f})",
-          flush=True)
     print(f"host_syncs_per_frame {run['reads']:.2f}", flush=True)
     print(f"peak_memory_bytes {peak}", flush=True)
-    return launches, dict(run, ms=again["ms"])
+    return launches, run
 
 
 # --- the loop-closure path ---------------------------------------------------
@@ -1660,10 +1707,9 @@ def run_small_closures():
           f"at ticks {[c['tick'] for c in run['closures']]}")
 
 
-def phase_closure(cam, frames, gt_poses, main_ms, entries):
-    """The loop-closure path at 640x480, each run read with the counts set to
-    0 just before it: (a) the sweep with closeLoops (the steady per-frame
-    cost of the default configuration: nothing closes), (b) local closures
+def phase_closure(cam, frames, gt_poses, entries):
+    """The loop-closure path at 640x480, each run's launches counted over it:
+    (a) the sweep with closeLoops (nothing closes), (b) local closures
     on a there-and-back run, (c) fern retrieval, (d) relocalization; and the
     tracking steps held against their plain versions on the arguments of the
     model-to-model solve and of the fern ICP.  Returns the runs of (a) and
@@ -1673,7 +1719,7 @@ def phase_closure(cam, frames, gt_poses, main_ms, entries):
 
     # (a)
     cfg_a = engine_config(cam).with_(closeLoops=True)
-    run, launches, _ = counted(lambda _: run_sweep(cam, frames, cfg_a))
+    run, launches, _ = counted(lambda: run_sweep(cam, frames, cfg_a))
     check_launched("(a) closeLoops sweep", launches, FRAME_KERNELS)
     check_frame_launches("(a) closeLoops sweep (wrapper calls, eager and captured frames)",
                          launches, cfg_a, run["engine"].runner.frames_run, solves=2)
@@ -1686,8 +1732,6 @@ def phase_closure(cam, frames, gt_poses, main_ms, entries):
           "(a) a second identical run gives bit-identical poses and counts")
     keyframes = len(run["engine"].ferns.frames)
     check(keyframes >= 1, f"(a) {keyframes} fern keyframes")
-    print(f"closeloops_ms_per_frame {run['ms']:.2f} (second run {again['ms']:.2f}; "
-          f"phase 4 without closeLoops {main_ms:.2f})", flush=True)
     print(f"closeloops_host_syncs_per_frame {run['reads']:.2f}", flush=True)
     print(f"closeloops_fern_keyframes {keyframes}", flush=True)
 
@@ -1697,7 +1741,7 @@ def phase_closure(cam, frames, gt_poses, main_ms, entries):
 
     cfg_b = closure_config(cam)
 
-    def drive_b(_):
+    def drive_b():
         with CallerCounts() as att:
             return run_closures(cam, frames_b, cfg_b), att
     (b, att_b), launches_b, reads_b = counted(drive_b)
@@ -1754,7 +1798,7 @@ def phase_closure(cam, frames, gt_poses, main_ms, entries):
     # (c)
     cap_c = {}
 
-    def drive_c(_):
+    def drive_c():
         with StepRecorder(cap_c), CallerCounts() as att:
             return run_ferns(scene, cam), att
     (c, att_c), launches_c, _ = counted(drive_c)
@@ -1771,7 +1815,7 @@ def phase_closure(cam, frames, gt_poses, main_ms, entries):
         entries[key] = dict(e, launches=att_c.launches["fern_icp"]["icp_step"])
 
     # (d)
-    d, launches_d, _ = counted(lambda _: run_reloc(scene, cam))
+    d, launches_d, _ = counted(lambda: run_reloc(scene, cam))
     check_launched("(d) relocalization", launches_d, FRAME_KERNELS)
     check(d["keyframes"] >= 1 and not d["lost_before"] and d["lost_after"],
           f"(d) {d['keyframes']} keyframes; not lost before the blackout, lost after it")
@@ -1809,10 +1853,9 @@ def bench_config(cam: CameraConfig) -> EngineConfig:
 def kernels_per_frame(frames, cfg) -> tuple:
     """torch.profiler over five steady frames (8 warm-up frames first; at
     depth 2 the window dispatches five frames and finishes five older ones):
-    (device kernels per frame, device ms per frame, the host's launch calls
-    per frame by name: a replayed frame is one graph launch and the copies
-    around it; the window's launches of every wrapper's kernel on the
-    card)."""
+    (device kernels per frame, the host's launch calls per frame by name: a
+    replayed frame is one graph launch and the copies around it; the
+    window's launches of every kernel on the card by name)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1829,9 +1872,7 @@ def kernels_per_frame(frames, cfg) -> tuple:
     host = {a.key: a.count / 5 for a in avgs
             if a.device_type == DeviceType.CPU and a.key.startswith("cuda")
             and ("Launch" in a.key or "Memcpy" in a.key or "Memset" in a.key)}
-    return (sum(a.count for a in kernels) / 5,
-            sum(a.self_device_time_total for a in kernels) / 1e3 / 5, host,
-            trace_launches(prof)[0])
+    return sum(a.count for a in kernels) / 5, host, trace_launches(prof)[0]
 
 
 def engine_state(eng) -> dict:
@@ -1874,8 +1915,8 @@ def run_checkpoint(frames_b, gt_b, cfg, path):
     rest = load_checkpoint(path, cfg, device=DEV)
     loaded = engine_state(rest)
     d, r = frames_b[CHECKPOINT_AFTER]
-    _, _, _, l_orig = traced(lambda _: eng.process_frame(r, d, timestamp=CHECKPOINT_AFTER))
-    _, _, _, l_rest = traced(lambda _: rest.process_frame(r, d, timestamp=CHECKPOINT_AFTER))
+    _, _, _, l_orig = traced(lambda: eng.process_frame(r, d, timestamp=CHECKPOINT_AFTER))
+    _, _, _, l_rest = traced(lambda: rest.process_frame(r, d, timestamp=CHECKPOINT_AFTER))
     for i in range(CHECKPOINT_AFTER + 1, len(frames_b)):
         d, r = frames_b[i]
         rest.process_frame(r, d, timestamp=i)
@@ -1970,8 +2011,7 @@ def run_eval(tmp):
 
 
 def phase_pipeline(cam, frames, gt_poses, p5) -> None:
-    """The slice's paths at 640x480, each run read with the counts set to 0
-    just before it: (a) bench.py's configuration (depth 2) on the sweep,
+    """The slice's paths at 640x480, each run's launches counted over it: (a) bench.py's configuration (depth 2) on the sweep,
     against phase 5 (a) at depth 0; (b) the there-and-back closure run at
     depth 2 against phase 5 (b); (c) run_slam end to end; (d) a checkpoint
     restored mid-run; (e) external poses; (f) eval_suite."""
@@ -1986,7 +2026,7 @@ def phase_pipeline(cam, frames, gt_poses, p5) -> None:
 
     # (a)
     cfg_a = bench_config(cam)
-    run, launches, _ = counted(lambda _: run_sweep(cam, frames, cfg_a))
+    run, launches, _ = counted(lambda: run_sweep(cam, frames, cfg_a))
     check_launched("6(a) bench.py configuration", launches, FRAME_KERNELS)
     check_frame_launches("6(a) bench.py configuration (wrapper calls, eager and captured "
                          "frames)", launches, cfg_a, run["engine"].runner.frames_run,
@@ -1999,26 +2039,21 @@ def phase_pipeline(cam, frames, gt_poses, p5) -> None:
     check(np.array_equal(run["traj"], again["traj"]) and run["counts"] == again["counts"],
           "6(a) a second identical run gives bit-identical poses and counts")
     # one profiled run, at depth 2: depth 0 runs the same kernels
-    k2, dev2, host2, by_name = kernels_per_frame(frames, cfg_a)
+    k2, host2, by_name = kernels_per_frame(frames, cfg_a)
     check_frame_launches("6(a) the profiled window's 5 frames (launches on the card, "
                          "trace)", by_name, cfg_a, 5, solves=2)
-    print(f"bench_config_ms_per_frame {run['ms']:.2f} (second run {again['ms']:.2f}; "
-          f"phase 5 (a) at depth 0 {a0['ms']:.2f}) [{smi}]", flush=True)
     print(f"bench_config_host_reads_per_frame {run['reads']:.2f} (depth 0 "
           f"{a0['reads']:.2f}) [{smi}]", flush=True)
-    print(f"bench_config_device_kernels_per_frame {k2:.0f}; device ms per frame "
-          f"{dev2:.2f} (profiled at depth 2) [{smi}]", flush=True)
+    print(f"bench_config_device_kernels_per_frame {k2:.0f} (profiled at depth 2) [{smi}]",
+          flush=True)
     print(f"bench_config_host_launch_calls_per_frame {host2} (a replayed frame; an eager "
           f"frame launches each of its {k2:.0f} kernels itself) [{smi}]", flush=True)
-    print(f"bench_config_device_idle_share {1 - dev2 / run['ms']:.3f} (depth 0 "
-          f"{1 - dev2 / a0['ms']:.3f}: the same device ms over phase 5 (a)'s ms/frame) "
-          f"[{smi}]", flush=True)
 
     # (b)
     b0 = p5["b"]
     frames_b, gt_b = there_and_back(p5["scene"], cam)
     cfg_b = closure_config(cam).with_(pipeline_depth=2)
-    b, launches_b, reads_b = counted(lambda _: run_closures(cam, frames_b, cfg_b))
+    b, launches_b, reads_b = counted(lambda: run_closures(cam, frames_b, cfg_b))
     check_launched("6(b) there-and-back at depth 2", launches_b, FRAME_KERNELS)
     gaps = [float(np.linalg.norm(p[:3, 3] - q[:3, 3])) for p, q in zip(b["traj"], b0["traj"])]
     check(b["deforms"][0] >= 1, f"6(b) local closures at depth 2: {b['deforms'][0]} "
@@ -2051,7 +2086,7 @@ def phase_pipeline(cam, frames, gt_poses, p5) -> None:
 
     with tempfile.TemporaryDirectory() as tmp:
         # (c)
-        c, launches_c, _ = counted(lambda _: run_cli(cam, frames, gt_poses, tmp))
+        c, launches_c, _ = counted(lambda: run_cli(cam, frames, gt_poses, tmp))
         check_launched("6(c) run_slam", launches_c, FRAME_KERNELS)
         n_lines = len(c["traj"].splitlines())
         check(c["rc"] == 0 and n_lines == len(frames),
@@ -2069,13 +2104,13 @@ def phase_pipeline(cam, frames, gt_poses, p5) -> None:
             print(f"  report: {line}", flush=True)
 
         # (d)
-        dd, _, _ = counted(lambda _: run_checkpoint(frames_b, gt_b, cfg_b,
+        dd, _, _ = counted(lambda: run_checkpoint(frames_b, gt_b, cfg_b,
                                                     f"{tmp}/ckpt.npz"))
         check(same_state(dd["loaded"], dd["saved"]),
               f"6(d) map fields, fern DB ({len(dd['saved']['ferns'])} keyframes), poses, "
               f"clocks and closure state round-trip exactly (capacity "
               f"{dd['capacity'][0]} -> {dd['capacity'][1]})")
-        extra = {k: dd["l_rest"][k] - dd["l_orig"][k] for k in WRAPPERS}
+        extra = {k: dd["l_rest"][k] - dd["l_orig"][k] for k in KERNEL_SYMBOLS}
         check(extra["splat_resolve"] == 1 and extra["fuse_window"] == 0,
               f"6(d) the restored engine's first frame launched one splat_resolve more "
               f"than the original engine's same frame (the regenerated prediction); "
@@ -2085,7 +2120,7 @@ def phase_pipeline(cam, frames, gt_poses, p5) -> None:
               f"{MAX_RESUMED_END_ERR_M * 1e3:.0f} mm")
 
         # (e)
-        e, launches_e, reads_e = counted(lambda _: run_external(frames, gt_poses, cfg_a))
+        e, launches_e, reads_e = counted(lambda: run_external(frames, gt_poses, cfg_a))
         check(e["same"] and e["finite"] and e["count"] > 0,
               f"6(e) {N_EXTERNAL} frames with external poses: the given poses returned, "
               f"{e['count']} surfels finite")
@@ -2095,7 +2130,7 @@ def phase_pipeline(cam, frames, gt_poses, p5) -> None:
               f"{N_EXTERNAL - 1} fused frames, the tracker not at all ({reads_e} host reads)")
 
         # (f)
-        f, launches_f, _ = counted(lambda _: run_eval(tmp))
+        f, launches_f, _ = counted(lambda: run_eval(tmp))
         check(f["rc"] == 0, f"6(f) eval_suite -quick -synth-only -configs {EVAL_CONFIG} "
               f"ran in {f['wall']:.1f} s")
         check_launched("6(f) eval_suite", launches_f, FRAME_KERNELS)
@@ -2211,10 +2246,10 @@ def run_slam_step(cam, frames, gt_poses, cfg):
 def run_sharded(frames, cfg):
     """(c): N_SHARD sweep frames, the growth trigger set before GROW_BEFORE
     (as when the fullest shard nears capacity); per-frame poses, counts,
-    collectives, ms/frame after the growth.  A sharded map holds all its
+    collectives a frame after the growth.  A sharded map holds all its
     sub-maps on this card."""
     eng = Engine(cfg, device=DEV)
-    calls, t0 = 0, None
+    calls = 0
     for i in range(N_SHARD):
         if i == GROW_BEFORE:
             S = eng.group.S if eng.group else 1
@@ -2222,17 +2257,15 @@ def run_sharded(frames, cfg):
             eng._count_finished = int(0.9 * cap_l) * S
             eng._count_max_finished = int(0.9 * cap_l)
         if i == GROW_BEFORE + 1:
-            torch.cuda.synchronize()
-            t0, calls = time.perf_counter(), (eng.group.total_calls if eng.group else 0)
+            calls = eng.group.total_calls if eng.group else 0
         d, r = frames[i]
         eng.process_frame(r, d, timestamp=i)
     eng.flush()
     torch.cuda.synchronize()
-    n_timed = N_SHARD - GROW_BEFORE - 1
-    ms = (time.perf_counter() - t0) / n_timed * 1e3
+    after = N_SHARD - GROW_BEFORE - 1
     traj = np.stack([T for _, T in eng.poses])
-    calls = ((eng.group.total_calls if eng.group else 0) - calls) / n_timed
-    return dict(traj=traj, count=eng.surfel_count, ms=ms, calls=calls, engine=eng,
+    calls = ((eng.group.total_calls if eng.group else 0) - calls) / after
+    return dict(traj=traj, count=eng.surfel_count, calls=calls, engine=eng,
                 capacity=eng.map.capacity)
 
 
@@ -2293,8 +2326,7 @@ def run_two_ranks(cam, frames, tmp):
 
 
 def phase_sharded(cam, frames, gt_poses, entries) -> None:
-    """Phase 7 at 640x480, each run read with the counts set to 0 just before
-    it: (a) the native .klg decoder on a JPEG-colour log and run_slam on it;
+    """Phase 7 at 640x480, each run's launches counted over it: (a) the native .klg decoder on a JPEG-colour log and run_slam on it;
     (b) slam_step at the default EngineConfig (fx16 clean); (c) the sharded
     map on bench.py's configuration, S = 1 against one device and S = 2 on
     one card against the reference's bounds, with K2 and K3 held against
@@ -2329,7 +2361,7 @@ def phase_sharded(cam, frames, gt_poses, entries) -> None:
         cfg_b = EngineConfig(camera=cam, initial_surfels=1 << 19, max_surfels=1 << 21,
                              confidence_threshold=0.3)
         check(cfg_b.fx16_clean, "7(b) the default EngineConfig sets fx16_clean")
-        (bx, launches_b, _) = counted(lambda _: run_slam_step(cam, frames, gt_poses, cfg_b))
+        (bx, launches_b, _) = counted(lambda: run_slam_step(cam, frames, gt_poses, cfg_b))
         check_launched("7(b) slam_step, fx16 clean", launches_b, FRAME_KERNELS)
         be = run_slam_step(cam, frames, gt_poses, cfg_b.with_(fx16_clean=False))
         terr, rerr = pose_error(bx["T"], gt_poses[N_SHARD - 1])
@@ -2351,7 +2383,7 @@ def phase_sharded(cam, frames, gt_poses, entries) -> None:
             check(np.array_equal(one["traj"], s1["traj"]) and one["count"] == s1["count"],
                   f"7(c) depth {depth}: S=1 bit-identical to the one-device engine")
 
-            def drive(_):
+            def drive():
                 with StepRecorder(cap):
                     return run_sharded(frames, cfg.with_(mesh_shape=(2,)))
             s2, launches_c, _ = counted(drive)
@@ -2369,8 +2401,7 @@ def phase_sharded(cam, frames, gt_poses, entries) -> None:
                   f"counts {s2['count']} / {one['count']}, median depth {med:.2e} m at "
                   f"the same pose (bounds 1 mm, 1e-3, 1 %, 1e-4 m)")
             per = N_SHARD - 1
-            print(f"  7(c) depth {depth}: ms/frame S=2 {s2['ms']:.2f}, S=1 {s1['ms']:.2f}, "
-                  f"one device {one['ms']:.2f}; collectives per frame S=2 "
+            print(f"  7(c) depth {depth}: collectives per frame S=2 "
                   f"{s2['calls']:.1f}, S=1 {s1['calls']:.1f}; per tracked frame S=2 "
                   f"splat_resolve {launches_c['splat_resolve'] / per:.2f}, fuse_window "
                   f"{launches_c['fuse_window'] / per:.2f} [{smi}]", flush=True)
@@ -2426,7 +2457,7 @@ def phase_sharded(cam, frames, gt_poses, entries) -> None:
         # (d)
         frames_d, gt_d = there_and_back(make_scene(n_side=1400), cam)
         cfg_d = closure_config(cam).with_(mesh_shape=(2,))
-        d, launches_d, _ = counted(lambda _: run_closures(cam, frames_d, cfg_d))
+        d, launches_d, _ = counted(lambda: run_closures(cam, frames_d, cfg_d))
         eng = d["engine"]
         check(isinstance(eng.map, engine_mod.ShardedMap) and d["deforms"][0] >= 1,
               f"7(d) S=2 there-and-back: {d['deforms'][0]} local closures on sub-maps at "
@@ -2455,7 +2486,7 @@ def phase_sharded(cam, frames, gt_poses, entries) -> None:
 
 # --- phase 8: fx16_tables, tools/scaling_bench -------------------------------
 
-N_FX16 = 12                    # sweep frames of (a), the last 6 timed
+N_FX16 = 12                    # sweep frames of (a)
 # (a): the reference's fx16 on / off bound for one solve at 640x480
 # (tests/test_gatherpack.py:90-118)
 MAX_FX16_TRANS_M = 5e-4
@@ -2469,19 +2500,14 @@ CROSSOVER_RESULT_KEYS = {"wall_ms_per_step", "cpu_s_per_step", "cpu_us_per_Msurf
 
 
 def run_fx16_frames(cam, frames, cfg):
-    """(a): `Engine.process_frame` on N_FX16 sweep frames, the last half
-    timed."""
+    """(a): `Engine.process_frame` on N_FX16 sweep frames."""
     eng = Engine(cfg, device=DEV)
     for i in range(N_FX16):
-        if i == N_FX16 // 2:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
         d, r = frames[i]
         eng.process_frame(r, d, timestamp=i)
     eng.flush()
     torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) / (N_FX16 - N_FX16 // 2) * 1e3
-    return dict(traj=np.stack([T for _, T in eng.poses]), ms=ms, count=eng.surfel_count,
+    return dict(traj=np.stack([T for _, T in eng.poses]), count=eng.surfel_count,
                 engine=eng)
 
 
@@ -2557,9 +2583,9 @@ def check_collectives(what, collectives, calls, steps):
           f"{what}: collectives per step {collectives} = MapGroup.calls {calls} / {steps}")
 
 
-def phase_last_modules(cam, frames, gt_poses, main_ms, entries, smi) -> None:
-    """Phase 8 at 640x480 and scaling_bench's sizes, each run read with the
-    counts set to 0 just before it: (a) fx16_tables through the Engine and
+def phase_last_modules(cam, frames, gt_poses, entries, smi) -> None:
+    """Phase 8 at 640x480 and scaling_bench's sizes, each run's launches
+    counted over it: (a) fx16_tables through the Engine and
     one solve on / off; (b) scaling_bench, main and -crossover, with both
     sub-maps on this card."""
     print(f"== 8. fx16_tables and scaling_bench ({smi})", flush=True)
@@ -2567,7 +2593,7 @@ def phase_last_modules(cam, frames, gt_poses, main_ms, entries, smi) -> None:
 
     # (a)
     cfg_a = engine_config(cam).with_(fx16_tables=True)
-    a, calls_a, _, launches_a = traced(lambda _: run_fx16_frames(cam, frames, cfg_a))
+    a, calls_a, _, launches_a = traced(lambda: run_fx16_frames(cam, frames, cfg_a))
     tracked = N_FX16 - 1
     check_launched("8(a) fx16_tables sweep (launches on the card, trace)", launches_a,
                    FRAME_KERNELS | {ICP_FX16}, per=tracked)
@@ -2593,12 +2619,10 @@ def phase_last_modules(cam, frames, gt_poses, main_ms, entries, smi) -> None:
           f"8(a) one 640x480 solve, fx16 on against off: {dt * 1e3:.4f} mm / {dr:.5f} deg "
           f"(bounds 0.5 mm / 0.05 deg; on is {pose_error(on, T1)[0] * 1e3:.3f} mm, off "
           f"{pose_error(off, T1)[0] * 1e3:.3f} mm from the truth)")
-    print(f"  8(a) ms/frame with fx16_tables {a['ms']:.2f} (frames 7-12, traced; phase 4 "
-          f"without {main_ms:.2f}, frames 7-36) [{smi}]", flush=True)
 
     # (b)
     argv = ["-n", "2", "-cap", "20", "-frames", "5", "-device", "cuda:0"]
-    (out, legs), launches_b, _ = counted(lambda _: run_scaling_bench(argv))
+    (out, legs), launches_b, _ = counted(lambda: run_scaling_bench(argv))
     check_launched("8(b) scaling_bench", launches_b, FRAME_KERNELS)
     print("  8(b) scaling_bench " + " ".join(argv) + ": " + json.dumps(out), flush=True)
     check(SCALING_KEYS <= set(out) and all(SCALING_LEG_KEYS <= set(out[k])
@@ -2620,7 +2644,7 @@ def phase_last_modules(cam, frames, gt_poses, main_ms, entries, smi) -> None:
           f"S=1 {sm['ms_per_step']['1']:.2f}, S=2 {sm['ms_per_step']['2']:.2f} on one "
           f"card [{smi}]", flush=True)
     argv = ["-crossover", "-n", "2", "-cap", "22", "-frames", "3", "-device", "cuda:0"]
-    (out, legs), launches_x, _ = counted(lambda _: run_scaling_bench(argv))
+    (out, legs), launches_x, _ = counted(lambda: run_scaling_bench(argv))
     check_launched("8(b) scaling_bench -crossover", launches_x, FRAME_KERNELS)
     print("  8(b) scaling_bench " + " ".join(argv) + ": " + json.dumps(out), flush=True)
     check(CROSSOVER_KEYS <= set(out) and all(CROSSOVER_RESULT_KEYS <= set(r)
@@ -2725,8 +2749,7 @@ def phase_device_frame(cam, frames, gt_poses, p4, smi) -> None:
     """Phase 9: the frame as one device program.  Over phase 4's sweep and
     over 6 (a)'s configuration (closeLoops, depth 2): replayed frames
     bit-identical to eager `_frame_main` frames on the same inputs, one host
-    read a frame; the replays, the wrapper launches each capture recorded
-    and the capture time of every key."""
+    read a frame; the replays and the capture time of every key."""
     print(f"== 9. the device-resident frame ({smi})", flush=True)
     for label, cfg in (("phase 4's configuration, depth 0", engine_config(cam)),
                        ("6 (a)'s configuration (closeLoops), depth 2", bench_config(cam))):
@@ -2744,13 +2767,10 @@ def phase_device_frame(cam, frames, gt_poses, p4, smi) -> None:
               f"beside kept keyframes' views (per frame: {rep['reads']}, at the flush "
               f"{rep['flush_reads']})")
         runner = rep["engine"].runner
-        names = [f"{fn.__name__}.{a}" for fn, a in graphs_mod.COUNTERS]
-        for key, g in runner.graphs.items():
-            n = {k: v for k, v in zip(names, g.launches) if v}
+        for key in runner.graphs:
             print(f"  9 {label}: key (capacity, do_compact, lost, fern DB) {key}: "
                   f"capture {runner.capture_seconds[key]:.3f} s, {runner.replays_of.get(key, 0)} "
-                  f"replays, wrapper launches its capture recorded {sum(g.launches)} {n} "
-                  f"[{smi}]", flush=True)
+                  f"replays [{smi}]", flush=True)
         terr, rerr = pose_error(rep["engine"].T_wc, gt_poses[-1])
         check(terr < MAX_TRANS_ERR_M and rerr < MAX_ROT_ERR_DEG,
               f"9 {label}: final pose error {terr * 1e3:.2f} mm / {rerr:.3f} deg")
@@ -2759,44 +2779,8 @@ def phase_device_frame(cam, frames, gt_poses, p4, smi) -> None:
     print("device_frame_tracker_reads 0 (tracking.py has no read_back)", flush=True)
 
 
-def phase_profile(cam, frames, steady_ms: float, cfg=None, label="") -> None:
-    """torch.profiler over five steady frames: device time by kernel."""
-    print(f"== profile: 5 frames{label}", flush=True)
-    from torch.profiler import ProfilerActivity, profile
-
-    eng = Engine(cfg or engine_config(cam), device=DEV)
-    for i in range(8):
-        eng.process_frame(frames[i][1], frames[i][0], timestamp=i)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for i in range(8, 13):
-            eng.process_frame(frames[i][1], frames[i][0], timestamp=i)
-        torch.cuda.synchronize()
-    avgs = prof.key_averages()
-    # kernel rows only: the operator rows repeat their kernels' device time
-    from torch.autograd import DeviceType
-
-    kernels = [a for a in avgs if a.device_type == DeviceType.CUDA]
-    dev_ms = sum(a.self_device_time_total for a in kernels) / 1e3 / 5
-    n_launch = sum(a.count for a in kernels) / 5
-    # the device time of the kernels under the span around K3's input cat
-    spans = [e for e in prof.events() if e.name == fuse_ops.WINDOW_INPUTS_SPAN
-             and e.device_type == DeviceType.CPU]
-    cat_ms = sum(e.device_time_total for e in spans) / 1e3 / 5
-    print(f"device_busy_ms_per_frame {dev_ms:.2f}", flush=True)
-    print(f"device_kernels_per_frame {n_launch:.0f}", flush=True)
-    print(f"fuse_window_input_cat_device_ms_per_frame {cat_ms:.4f} "
-          f"({len(spans)} spans)", flush=True)
-    print(f"device_idle_share {1 - dev_ms / steady_ms:.3f} (against the "
-          f"{steady_ms:.2f} ms/frame measured without the profiler)", flush=True)
-    print(avgs.table(sort_by="self_device_time_total", row_limit=25,
-                     max_name_column_width=60), flush=True)
-
-
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--profile", action="store_true",
-                    help="also print a torch.profiler table of five frames")
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after phase 3 (prints no result line)")
     args = ap.parse_args()
@@ -2823,20 +2807,16 @@ def main() -> None:
         return
     launches, run = phase_main_path(cam, frames, gt_poses)
     lap("4")
-    p5 = phase_closure(cam, frames, gt_poses, run["ms"], entries)
+    p5 = phase_closure(cam, frames, gt_poses, entries)
     lap("5")
     phase_pipeline(cam, frames, gt_poses, p5)
     lap("6")
     phase_sharded(cam, frames, gt_poses, entries)
     lap("7")
-    phase_last_modules(cam, frames, gt_poses, run["ms"], entries, smi)
+    phase_last_modules(cam, frames, gt_poses, entries, smi)
     lap("8")
     phase_device_frame(cam, frames, gt_poses, run, smi)
     lap("9")
-    if args.profile:
-        phase_profile(cam, frames, run["ms"])
-        phase_profile(cam, frames, p5["a"]["ms"], engine_config(cam).with_(closeLoops=True),
-                      " with closeLoops")
 
     print("== 10. kernels", flush=True)
     kernels = []

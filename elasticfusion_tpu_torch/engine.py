@@ -64,11 +64,8 @@ from .graphs import FrameRunner, copy_into
 from .ops.bilateral import bilateral_filter
 from .ops.fillin import fill_all
 from .ops.fuse import FuseStats, clean, fuse
-from .ops.preprocess import (
-    metricise_depth,
-    pyr_down_intensity,
-    rgb_to_intensity,
-)
+from .ops.preprocess import metricise_depth, rgb_to_intensity
+from .ops.pyramid import pyr_down_intensity
 from .ops.splat import Prediction, combined_predict, predict_indices
 from .parallel import shard_step
 from .parallel.shard_step import ShardedMap, to_device

@@ -23,12 +23,10 @@ replay overwrites it while the frame is in flight: d frames in flight, the
 one being dispatched, and the last finished one, whose node sample the
 deformation graph keeps until the next finish.
 
-Kernel launch counts: a wrapper counts its launch calls, the eager ones and
-those a capture records into a graph; a replay calls no wrapper, so it
-counts nothing.  `_Captured.launches` keeps what one capture recorded (what
-each replay of it launches on the device), `frames_run` the frames whose
-Python ran (eager or captured) and `replays_of` the replays of each key: a
-profiler trace counts the replayed kernels by name.
+`frames_run` counts the frames whose Python ran (eager or captured),
+`replays_of` the replays of each key and `capture_seconds` the time of each
+capture.  A replay calls no kernel wrapper: a profiler trace counts the
+launches on the device by kernel name.
 """
 
 from __future__ import annotations
@@ -37,31 +35,6 @@ import time
 from typing import Callable, Dict, List, NamedTuple, Optional
 
 import torch
-
-from .ops import bilateral, fuse_window, gram, odometry, pyramid, splat_resolve
-
-# every kernel wrapper's launch counter: (wrapper, attribute)
-COUNTERS = (
-    (gram.gram_outer, "launches"),
-    (odometry.icp_step, "launches"),
-    (odometry.icp_step, "launches_fx16"),
-    (odometry.compute_rgb_residual, "launches"),
-    (odometry.rgb_step, "launches"),
-    (odometry.so3_step, "launches"),
-    (odometry.so3_update, "launches"),
-    (odometry.gn_update, "launches"),
-    (splat_resolve.splat_resolve, "launches"),
-    (fuse_window.fuse_window, "launches"),
-    (bilateral.bilateral_filter, "launches"),
-    (pyramid.pyr_down_depth, "launches"),
-    (pyramid.pyr_down_gauss, "launches"),
-    (pyramid.pyr_down_intensity, "launches"),
-    (pyramid.compute_derivatives, "launches"),
-)
-
-
-def _counts() -> List[int]:
-    return [getattr(fn, attr) for fn, attr in COUNTERS]
 
 
 def leaves(tree) -> List[torch.Tensor]:
@@ -103,7 +76,6 @@ def _same_shapes(a, b) -> bool:
 class _Captured(NamedTuple):
     graph: "torch.cuda.CUDAGraph"
     out: dict
-    launches: List[int]
 
 
 class FrameRunner:
@@ -159,7 +131,6 @@ class FrameRunner:
         # graphs of another fern DB capacity read DB tensors that are gone
         for k in [k for k in self.graphs if k[-1] != key[-1]]:
             del self.graphs[k]
-        before = _counts()
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, pool=self.pool):
@@ -167,8 +138,7 @@ class FrameRunner:
         torch.cuda.synchronize()
         self.capture_seconds[key] = time.perf_counter() - t0
         self.frames_run += 1
-        launched = [a - b for a, b in zip(_counts(), before)]
-        self.graphs[key] = _Captured(graph, out, launched)
+        self.graphs[key] = _Captured(graph, out)
 
     def _keep(self, out: dict) -> dict:
         slot = self.slots[self._slot]

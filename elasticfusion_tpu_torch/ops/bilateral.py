@@ -76,8 +76,4 @@ def bilateral_filter(
                   SIGMA_SPACE2_INV_HALF, SIGMA_COLOR2_INV_HALF, max_depth * 1000.0,
                   torch.cuda.current_stream().cuda_stream)
     check_launch(code, "bilateral_filter")
-    bilateral_filter.launches += 1
     return out
-
-
-bilateral_filter.launches = 0

@@ -175,8 +175,4 @@ def fuse_window(chan: torch.Tensor, params: torch.Tensor, fx: float, fy: float,
                   params.data_ptr(), out.data_ptr(), H, W, fx, fy, cx, cy,
                   float(cap), torch.cuda.current_stream().cuda_stream)
     check_launch(code, "fuse_window")
-    fuse_window.launches += 1
     return out
-
-
-fuse_window.launches = 0

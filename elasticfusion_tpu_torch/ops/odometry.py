@@ -365,13 +365,7 @@ def icp_step(
                   reduction_grid(H * W, _PIXELS_PER_THREAD), out.data_ptr(),
                   torch.cuda.current_stream().cuda_stream)
     check_launch(code, "icp_step")
-    icp_step.launches += 1
-    icp_step.launches_fx16 += fx16
     return Gram(A=out[0:36].view(6, 6), b=out[36:42], sum_sq=out[42], count=out[43])
-
-
-icp_step.launches = 0
-icp_step.launches_fx16 = 0      # of them, launches of the fixed-point form
 
 
 # ---------------------------------------------------------------------------
@@ -516,12 +510,8 @@ def compute_rgb_residual(
                   ticket.data_ptr(), reduction_grid(N, _PIXELS_PER_THREAD),
                   stats.data_ptr(), torch.cuda.current_stream().cuda_stream)
     check_launch(code, "compute_rgb_residual")
-    compute_rgb_residual.launches += 1
     return RgbCorrespondence(u0=None, v0=None, diff=diff, valid=None,
                              count=stats[1], sigma_sum=stats[0], flat0=flat0)
-
-
-compute_rgb_residual.launches = 0
 
 
 def rgb_step_plain(
@@ -626,12 +616,8 @@ def rgb_step(
                   reduction_grid(N, _PIXELS_PER_THREAD), out.data_ptr(),
                   sum_sq.data_ptr(), torch.cuda.current_stream().cuda_stream)
     check_launch(code, "rgb_step")
-    rgb_step.launches += 1
     return Gram(A=out[0:36].view(6, 6), b=out[36:42], sum_sq=sum_sq,
                 count=corres.count)
-
-
-rgb_step.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -762,11 +748,7 @@ def so3_step(
                   reduction_grid(H * W, _PIXELS_PER_THREAD), out.data_ptr(),
                   torch.cuda.current_stream().cuda_stream)
     check_launch(code, "so3_step")
-    so3_step.launches += 1
     return GramSO3(A=out[0:9].view(3, 3), b=out[9:12], sum_sq=out[12], count=out[13])
-
-
-so3_step.launches = 0
 
 
 def project_to_point_cloud(
@@ -1183,10 +1165,6 @@ def so3_update(stage: int, pack: Optional[torch.Tensor], carry: torch.Tensor,
         code = fn(stage, None if pack is None else pack.data_ptr(), carry.data_ptr(),
                   active.data_ptr(), *k, torch.cuda.current_stream().cuda_stream)
     check_launch(code, "so3_update")
-    so3_update.launches += 1
-
-
-so3_update.launches = 0
 
 
 def gn_update(stage: int, pack: Optional[torch.Tensor], carry: torch.Tensor,
@@ -1216,7 +1194,3 @@ def gn_update(stage: int, pack: Optional[torch.Tensor], carry: torch.Tensor,
                   o.icp_weight, o.early_exit, o.plateau_exit, o.translation_sanity,
                   o.cov_threshold, torch.cuda.current_stream().cuda_stream)
     check_launch(code, "gn_update")
-    gn_update.launches += 1
-
-
-gn_update.launches = 0

@@ -24,13 +24,7 @@ import torch
 
 from ..config import CameraConfig
 from ..surfels import pixel_grid, recip32
-from .pyramid import (  # noqa: F401  (the pyramid stencils are this module's too)
-    _Padded,
-    compute_derivatives,
-    pyr_down_depth,
-    pyr_down_gauss,
-    pyr_down_intensity,
-)
+from .pyramid import _Padded
 
 
 def shift2d(x: torch.Tensor, dy: int, dx: int) -> torch.Tensor:

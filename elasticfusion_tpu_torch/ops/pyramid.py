@@ -171,7 +171,6 @@ def pyr_down_depth(depth_m: torch.Tensor, sigma_color: float = 0.03) -> torch.Te
     fn = kernel_function("pyramid", "ef_pyr_down_depth", _DEPTH_ARGS)
     src, out = _half_res(depth_m)
     _launch(fn, "pyr_down_depth", src, (out,), 3.0 * sigma_color)
-    pyr_down_depth.launches += 1
     return out
 
 
@@ -183,7 +182,6 @@ def pyr_down_gauss(img: torch.Tensor) -> torch.Tensor:
     fn = kernel_function("pyramid", "ef_pyr_down_gauss", _PYR_ARGS)
     src, out = _half_res(img)
     _launch(fn, "pyr_down_gauss", src, (out,))
-    pyr_down_gauss.launches += 1
     return out
 
 
@@ -196,7 +194,6 @@ def pyr_down_intensity(img: torch.Tensor) -> torch.Tensor:
     fn = kernel_function("pyramid", "ef_pyr_down_intensity", _PYR_ARGS)
     src, out = _half_res(img)
     _launch(fn, "pyr_down_intensity", src, (out,))
-    pyr_down_intensity.launches += 1
     return out
 
 
@@ -211,11 +208,4 @@ def compute_derivatives(img: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     src = img.to(torch.float32).contiguous()
     dx, dy = torch.empty_like(src), torch.empty_like(src)
     _launch(fn, "compute_derivatives", src, (dx, dy), _SCHARR_A, _SCHARR_B)
-    compute_derivatives.launches += 1
     return dx, dy
-
-
-pyr_down_depth.launches = 0
-pyr_down_gauss.launches = 0
-pyr_down_intensity.launches = 0
-compute_derivatives.launches = 0

@@ -134,8 +134,4 @@ def splat_resolve(chan: torch.Tensor, fx: float, fy: float, cx: float,
         code = fn(chan.data_ptr(), out.data_ptr(), H, W, fx, fy, cx, cy,
                   torch.cuda.current_stream().cuda_stream)
     check_launch(code, "splat_resolve")
-    splat_resolve.launches += 1
     return out
-
-
-splat_resolve.launches = 0

@@ -66,16 +66,18 @@ from .ops.odometry import (
 )
 from .ops.preprocess import (
     SOBEL_SCALE,
-    compute_derivatives,
     compute_nmap,
     compute_vmap,
-    pyr_down_depth,
-    pyr_down_gauss,
-    pyr_down_intensity,
     resize_nmap,
     resize_vmap,
     rgb_to_intensity,
     vertices_to_depth,
+)
+from .ops.pyramid import (
+    compute_derivatives,
+    pyr_down_depth,
+    pyr_down_gauss,
+    pyr_down_intensity,
 )
 
 

@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from _torch_parity import SMALL_CAM, both_cams, nn, tt
+from _torch_kernels import kernel_calls  # noqa: F401
 from elasticfusion_tpu.ops import preprocess as ref_pp
 from elasticfusion_tpu.utils.synthetic import make_scene, pose_from_xyzrpy, render_frame
 from elasticfusion_tpu_torch.ops import bilateral as port_bf
@@ -68,18 +69,18 @@ def port_out(frame, ref_out):
     stage's rounding does not leak into the next comparison."""
     _, port_cam, depth_mm, rgb = frame
     r = {k: tt(v) for k, v in ref_out.items()}
-    dx, dy = port_pp.compute_derivatives(r["intensity"])
+    dx, dy = port_pyr.compute_derivatives(r["intensity"])
     return dict(
         bilateral=port_bf.bilateral_filter(tt(depth_mm), 20.0, 6),
         metricise=port_pp.metricise_depth(r["bilateral"], 3.0),
         metricise_every_mm=port_pp.metricise_depth(tt(EVERY_MM), 20.0),
         vmap=port_pp.compute_vmap(r["metricise"], port_cam, 20.0),
         nmap=port_pp.compute_nmap(r["vmap"]),
-        pyr_down_depth=port_pp.pyr_down_depth(r["metricise"]),
+        pyr_down_depth=port_pyr.pyr_down_depth(r["metricise"]),
         vertices_to_depth=port_pp.vertices_to_depth(r["vmap"], 2.2),
-        pyr_down_gauss=port_pp.pyr_down_gauss(r["vertices_to_depth"]),
+        pyr_down_gauss=port_pyr.pyr_down_gauss(r["vertices_to_depth"]),
         intensity=port_pp.rgb_to_intensity(tt(rgb)),
-        pyr_down_intensity=port_pp.pyr_down_intensity(r["intensity"]),
+        pyr_down_intensity=port_pyr.pyr_down_intensity(r["intensity"]),
         resize_vmap=port_pp.resize_vmap(r["vmap"]),
         resize_nmap=port_pp.resize_nmap(r["nmap"]),
         deriv_x=dx, deriv_y=dy,
@@ -127,14 +128,13 @@ def test_preprocess_stage_matches_reference(name, ref_out, port_out):
 
 
 @pytest.mark.parametrize("radius", [6, 3])
-def test_bilateral_filter_on_the_cpu_is_its_plain_version(frame, radius):
+def test_bilateral_filter_on_the_cpu_is_its_plain_version(frame, radius, kernel_calls):
     """The wrapper takes the plain version for a CPU tensor, bit for bit,
-    and launches nothing."""
+    and reaches no kernel."""
     depth = tt(frame[2])
-    before = port_bf.bilateral_filter.launches
     got = port_bf.bilateral_filter(depth, 20.0, radius)
     assert torch.equal(got, port_bf.bilateral_filter_plain(depth, 20.0, radius))
-    assert port_bf.bilateral_filter.launches == before
+    assert kernel_calls == []
 
 
 def test_borders_are_zero_filled_shifts():
@@ -146,7 +146,7 @@ def test_borders_are_zero_filled_shifts():
     assert got[:, -1].max() == 0.0 and got[:, -2].min() == 100.0
     assert nn(port_pp.shift2d(tt(img), 0, -1))[:, 0].max() == 0.0     # no wrap
     flat = np.full((8, 10), 50.0, np.float32)
-    down = nn(port_pp.pyr_down_intensity(tt(flat)))
+    down = nn(port_pyr.pyr_down_intensity(tt(flat)))
     np.testing.assert_allclose(down, 50.0, rtol=1e-6)   # masked weights renormalise
 
 
@@ -176,13 +176,12 @@ def _pyramid_image(name, shape, kind):
 @pytest.mark.parametrize("shape", [(480, 640), (240, 320), (120, 160), (15, 20), (61, 81)],
                          ids=lambda s: f"{s[1]}x{s[0]}")
 @pytest.mark.parametrize("name", PYRAMID_STENCILS)
-def test_pyramid_stencil_on_the_cpu_is_its_plain_version(name, shape, kind):
+def test_pyramid_stencil_on_the_cpu_is_its_plain_version(name, shape, kind, kernel_calls):
     """Each pyramid stencil takes its plain version for a CPU tensor, bit for
-    bit, and launches nothing: at every level's size of a 640x480 frame, at
+    bit, and reaches no kernel: at every level's size of a 640x480 frame, at
     odd sizes, across depth jumps and on an all-zero image."""
     img = _pyramid_image(name, shape, kind)
     fn = getattr(port_pyr, name)
-    before = fn.launches
     got, plain = fn(img), getattr(port_pyr, name + "_plain")(img)
     if name != "compute_derivatives":
         got, plain = (got,), (plain,)
@@ -190,7 +189,7 @@ def test_pyramid_stencil_on_the_cpu_is_its_plain_version(name, shape, kind):
     for g, p in zip(got, plain):
         assert g.dtype == torch.float32
         assert torch.equal(g.view(torch.int32), p.view(torch.int32))
-    assert fn.launches == before
+    assert kernel_calls == []
     if kind != "zeros":     # the images exercise the stencils
         assert float(plain[0].abs().max()) > 0
 

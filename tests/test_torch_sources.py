@@ -1,9 +1,9 @@
 """Static checks of the port's sources, and of every kernel wrapper's contract
 that needs no card: the port imports neither JAX nor the JAX package, every
 kernel source and launcher symbol a wrapper asks for exists, every wrapper has
-a plain version and a launch counter, refuses a tensor that is neither on the
-CPU nor on a card, and importing the package builds nothing and starts no
-CUDA context."""
+a plain version and gets its launcher from `kernel_function`, refuses a tensor
+that is neither on the CPU nor on a card before it reaches a kernel, and
+importing the package builds nothing and starts no CUDA context."""
 
 import ast
 import importlib
@@ -16,6 +16,7 @@ import pytest
 import torch
 
 import elasticfusion_tpu_torch
+from _torch_kernels import WRAPPER_MODULES, kernel_calls  # noqa: F401
 from elasticfusion_tpu_torch import _build
 from elasticfusion_tpu_torch.ops import bilateral as bilateral_mod
 from elasticfusion_tpu_torch.ops import fuse_window as fuse_window_mod
@@ -27,8 +28,6 @@ from elasticfusion_tpu_torch.ops import splat_resolve as splat_resolve_mod
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "elasticfusion_tpu_torch")
 FORBIDDEN = {"jax", "jaxlib", "elasticfusion_tpu"}
-WRAPPER_MODULES = (gram_mod, odometry_mod, splat_resolve_mod, fuse_window_mod,
-                   bilateral_mod, pyramid_mod)
 
 
 def _python_sources():
@@ -116,12 +115,14 @@ def _kernel_function_calls(module):
 WRAPPERS = [(m, *call) for m in WRAPPER_MODULES for call in _kernel_function_calls(m)]
 
 
-def test_the_port_has_seven_kernel_wrappers():
-    """Seven kernels of the Pallas sites' paths, the two tracker updates
-    (csrc/tracker_update.cu) that keep the tracker's loops on the card, and
-    the preprocess stencils that XLA fuses for the reference: the bilateral
-    filter (csrc/bilateral.cu), and the three pyrDowns and the derivatives
-    (csrc/pyramid.cu)."""
+def test_the_port_has_fourteen_kernel_wrappers():
+    """Fourteen wrappers, each of one kernel: seven of the Pallas sites'
+    paths (gram_outer, the four tracking steps, splat_resolve, fuse_window),
+    the two tracker updates (csrc/tracker_update.cu) that keep the tracker's
+    loops on the card, and the five preprocess stencils that XLA fuses for
+    the reference: the bilateral filter (csrc/bilateral.cu), and the three
+    pyrDowns and the derivatives (csrc/pyramid.cu).  This sorted list is the
+    one guard on the set of wrappers."""
     assert sorted(w[1] for w in WRAPPERS) == [
         "bilateral_filter", "compute_derivatives", "compute_rgb_residual", "fuse_window",
         "gn_update", "gram_outer", "icp_step", "pyr_down_depth", "pyr_down_gauss",
@@ -153,16 +154,16 @@ def test_a_header_edit_changes_the_library_name(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("module,function,source,symbol", WRAPPERS,
                          ids=[w[1] for w in WRAPPERS])
-def test_wrapper_has_source_symbol_plain_version_and_counter(
-        module, function, source, symbol):
+def test_wrapper_has_source_symbol_and_plain_version(module, function, source, symbol):
     assert source in _build.SOURCES
     with open(_build.source_files(source)[0], encoding="utf-8") as f:
         text = f.read()
     assert re.search(r'extern\s+"C"\s+int\s+' + re.escape(symbol) + r"\s*\(", text), (
         f"{symbol} is no extern \"C\" launcher of csrc/{source}.cu")
-    wrapper = getattr(module, function)
+    assert callable(getattr(module, function))
     assert callable(getattr(module, function + "_plain"))
-    assert isinstance(wrapper.launches, int)
+    # `kernel_calls` replaces the launcher by this name in the module
+    assert module.kernel_function is _build.kernel_function
 
 
 def _meta(*shape, dtype=torch.float32):
@@ -208,28 +209,25 @@ def _meta_calls():
 
 
 @pytest.mark.parametrize("function", [w[1] for w in WRAPPERS])
-def test_wrapper_raises_for_a_tensor_on_neither_cpu_nor_card(function):
+def test_wrapper_raises_for_a_tensor_on_neither_cpu_nor_card(function, kernel_calls):
     """Only a CPU tensor gets the plain version; anything else must reach the
-    kernel or raise — here a `meta` tensor, which must raise and launch
-    nothing."""
-    wrapper = next(getattr(m, f) for m, f, _, _ in WRAPPERS if f == function)
-    before = wrapper.launches
+    kernel or raise — here a `meta` tensor, which must raise before it
+    reaches a kernel."""
     with pytest.raises(ValueError, match="unsupported device"):
         _meta_calls()[function]()
-    assert wrapper.launches == before
+    assert kernel_calls == []
 
 
-def test_icp_step_on_a_fixed_point_table_raises_for_a_meta_tensor():
+def test_icp_step_on_a_fixed_point_table_raises_for_a_meta_tensor(kernel_calls):
     """The fixed-point model table takes the same route: a tensor neither on
-    the CPU nor on a card raises and launches nothing."""
+    the CPU nor on a card raises before it reaches a kernel."""
     H, W = 4, 6
     table = ("fx16", _meta(3, H * W, dtype=torch.int32), _meta(6), _meta(6))
-    before = odometry_mod.icp_step.launches
     with pytest.raises(ValueError, match="unsupported device"):
         odometry_mod.icp_step(_meta(4, 4), _meta(3, H, W), _meta(3, H, W), _meta(4, 4),
                               _meta(3, H, W), _meta(3, H, W), 5.0, 5.0, 3.0, 2.0,
                               prev_table=table)
-    assert odometry_mod.icp_step.launches == before
+    assert kernel_calls == []
 
 
 def test_import_builds_nothing_and_starts_no_cuda_context():
